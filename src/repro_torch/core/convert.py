@@ -1,0 +1,49 @@
+"""Carry plans and round states between numpy and the port's tensors.
+
+A plan dict (``plan_device``) and a round state (``_state0`` or a
+step's output) are dicts of arrays with the same keys and shapes in
+``repro.core.engine`` and here, with one exception: the port's
+per-record state arrays (``engine.RECORD_ARRAYS``) carry one extra row
+for dropped writes. These helpers add and strip it, so both packages
+can compute from one plan and one state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import RECORD_ARRAYS
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.from_numpy(a.copy()).to(device)
+    return torch.from_numpy(a.astype(np.int32)).to(device)
+
+
+def plan_from_numpy(p: dict, device) -> dict[str, torch.Tensor]:
+    """Plan arrays (numpy, int32 or bool) -> tensors on ``device``."""
+    return {k: _tensor(v, device) for k, v in p.items()}
+
+
+def state_from_numpy(s: dict, device) -> dict[str, torch.Tensor]:
+    """A round state as numpy arrays (``R``-row per-record arrays) ->
+    the port's state on ``device`` (``R + 1`` rows, the last zero)."""
+    out = {}
+    for k, v in s.items():
+        v = np.asarray(v)
+        if k in RECORD_ARRAYS:
+            v = np.concatenate([v, np.zeros_like(v[:1])], axis=0)
+        out[k] = _tensor(v, device)
+    return out
+
+
+def state_to_numpy(s: dict) -> dict[str, np.ndarray]:
+    """The port's state -> numpy arrays in the reference's shapes."""
+    out = {}
+    for k, v in s.items():
+        a = v.detach().cpu().numpy()
+        out[k] = a[:-1] if k in RECORD_ARRAYS else a
+    return out

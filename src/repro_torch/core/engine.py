@@ -1,0 +1,1273 @@
+"""The ORTHRUS transaction engine in PyTorch.
+
+A port of ``repro.core.engine`` that computes the same simulation bit
+for bit. The simulator advances in rounds (``CostModel.cycles_per_round``
+cycles); in each round every lane interacts with the lock table at most
+once. See the reference module for the protocol families and the cost
+model; this module keeps its names, row constants and stage numbering.
+
+Ported so far (``make_step``): ``orthrus`` (CC lanes own key
+partitions, exec lanes multiplex a window of transactions, P1 + P2) and
+``deadlock_free`` (canonical-order acquisition, P2 alone), closed loop,
+``release_path="csr"``, one round per dispatch, with event leaping on or
+off. Everything else raises ``NotImplementedError`` naming the slice of
+the port that brings it.
+
+State is a dict of int32 / bool tensors on one device, as in the
+reference, with one difference: the per-record arrays (``wh``, ``rc``,
+``heat``, ``line``, ``agg_sum``) carry one extra row at index ``R``.
+The reference scatters with ``mode="drop"`` at index ``R``; here those
+writes land in the extra row, which nothing reads.
+``repro_torch.core.convert`` adds and strips it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import planner as planner_lib
+from repro_torch.core.cost_model import DEFAULT_COST_MODEL, CostModel
+from repro_torch.core.lockgrant import (
+    I32_MAX,
+    I32_MIN,
+    KEY_SENTINEL,
+    REQ_NONE,
+    REQ_READ,
+    REQ_RELEASE,
+    REQ_WRITE,
+    lex_order,
+    segment_starts,
+    sorted_grant,
+)
+from repro_torch.core.metrics import LAT_BUCKETS, QDEPTH_SAMPLES
+from repro_torch.core.workloads import (
+    MODE_READ,
+    MODE_WRITE,
+    Workload,
+    epoch_arrival_schedule,
+)
+from repro_torch.kernels import use_kernel
+
+I32 = torch.int32
+
+# Phases
+EMPTY, INIT, ACQ, MSG, READY, EXEC, REL, BACKOFF = range(8)
+
+# Packed state matrix: every per-slot scalar field is one row of the
+# int32 [SLOT_F, T] matrix ``state["slots"]`` (bool fields stored 0/1).
+(
+    C_TID,         # loaded txn id (-1 = none)
+    C_WIDX,        # workload index of the loaded txn
+    C_LANE_CTR,    # H-Store per-lane stream cursor
+    C_TS,          # timestamp (= txn id; unique per slot)
+    C_PHASE,       # EMPTY .. BACKOFF
+    C_COMMITTING,  # bool: REL path ends in commit (vs abort/backoff)
+    C_BUSY_UNTIL,  # round until which the slot is busy
+    C_BUSY_KIND,   # CAT_* charged while busy
+    C_KPTR,        # next key index (program/canonical order)
+    C_ATTEMPT,     # retry attempt counter
+    C_CCPTR,       # ORTHRUS: first key of the current CC group
+    C_MSG_ARRIVE,  # ORTHRUS/batch: message arrival round
+    C_MSG_STAGE,   # ORTHRUS: 0 = acquire hop, 1 = response hop
+    C_RELEASE_AT,  # round the release (message) lands
+    C_WAITED,      # bool: slot was lock-waiting last round
+    C_DL_DEBT,     # accumulated deadlock-handling cycles (mod round)
+    C_ARRIVE,      # arrival round of the loaded txn (metrics: latency)
+) = range(17)
+SLOT_F = 17
+SLOT_COLS = (
+    "tid", "widx", "lane_ctr", "ts", "phase", "committing", "busy_until",
+    "busy_kind", "kptr", "attempt", "ccptr", "msg_arrive", "msg_stage",
+    "release_at", "waited", "dl_debt", "arrive",
+)
+
+# Batch-planned engine rows (ported with make_batch_step).
+(
+    BC_TID,
+    BC_WIDX,
+    BC_TS,
+    BC_PHASE,
+    BC_BUSY_UNTIL,
+    BC_BUSY_KIND,
+    BC_MSG_ARRIVE,
+    BC_FTXN,
+    BC_ARRIVE,
+) = range(9)
+BATCH_SLOT_F = 9
+BATCH_SLOT_COLS = (
+    "tid", "widx", "ts", "phase", "busy_until", "busy_kind", "msg_arrive",
+    "ftxn", "arrive",
+)
+
+# Per-record state arrays: [R + 1, ...], row R is the dropped-write row.
+RECORD_ARRAYS = ("wh", "rc", "heat", "line", "agg_sum")
+
+# Sharer-heat epoch length (rounds) for the coherence model.
+EPOCH_BITS = 12
+# Lane-time categories (paper Fig 10 breakdown)
+CAT_IDLE, CAT_EXEC, CAT_LOCK, CAT_WAIT, CAT_DL, CAT_MSG = range(6)
+NCAT = 6
+
+_IMAX = I32_MAX
+
+# Saturation bound for the open-arrival closed forms (see reference).
+_SAT = 1 << 30
+
+
+def _sat_mul(a, b):
+    """``a * b`` clamped to ``_SAT`` (int32-safe; a >= 0, b >= 0)."""
+    return torch.where(a > _SAT // torch.clamp(b, min=1), _SAT, a * b)
+
+
+PROTOCOLS = (
+    "twopl_waitdie",
+    "twopl_waitfor",
+    "twopl_dreadlocks",
+    "deadlock_free",
+    "orthrus",
+    "partitioned_store",
+    "dgcc",
+    "quecc",
+    "scheduled",
+)
+
+# Protocols this port runs; the rest name the slice that brings them.
+PORTED_PROTOCOLS = ("deadlock_free", "orthrus")
+_SLICE_OF_PROTOCOL = {
+    "dgcc": 2, "quecc": 2, "scheduled": 2,
+    "twopl_waitdie": 3, "twopl_waitfor": 3, "twopl_dreadlocks": 3,
+    "partitioned_store": 3,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Engine configuration; the fields, defaults and checks of
+    ``repro.core.engine.EngineConfig``, so one set of keyword arguments
+    builds a valid config in both packages.
+
+    ``kernel_impl`` keeps the reference's values: "jnp" is the plain
+    PyTorch formulation of the grant pass, "pallas" the hand-written
+    CUDA kernel (its plain version for CPU tensors), and "auto" the
+    kernel for CUDA tensors and the plain formulation for CPU tensors.
+    """
+
+    protocol: str
+    n_exec: int
+    n_cc: int = 0
+    window: int = 1
+    split_index: bool = False
+    event_leap: bool = True
+    state_layout: str = "packed"
+    fragment_exec: bool = False
+    inter_batch_pipeline: bool = False
+    n_planner_lanes: int = 0
+    epoch_interval_rounds: int = 0
+    admission_policy: str = "none"
+    backlog_cap: int = 0
+    token_interval_rounds: int = 0
+    token_burst: int = 0
+    deadline_rounds: int = 0
+    retry_budget: int = 0
+    backoff_mode: str = "fixed"
+    backoff_max_rounds: int = 256
+    arrival_pattern: str = "uniform"
+    burst_period_epochs: int = 0
+    burst_on_epochs: int = 0
+    rounds_per_dispatch: int = 1
+    release_path: str = "csr"
+    kernel_impl: str = "auto"
+    max_rounds: int = 60_000
+    warmup_rounds: int = 4_000
+    chunk_rounds: int = 4_000
+    target_commits: int = 50_000
+    cost: CostModel = DEFAULT_COST_MODEL
+
+    def __post_init__(self):
+        assert self.protocol in PROTOCOLS, self.protocol
+        assert self.state_layout in ("packed", "legacy"), self.state_layout
+        if self.protocol == "orthrus":
+            assert self.n_cc >= 1
+        if self.protocol == "quecc":
+            assert self.n_cc >= 1, "quecc needs n_cc planner/queue lanes"
+        if self.protocol == "scheduled":
+            assert self.state_layout == "packed", (
+                "the frozen legacy engine predates the scheduled family"
+            )
+        if self.fragment_exec or self.inter_batch_pipeline:
+            assert self.protocol in ("dgcc", "quecc"), (
+                "fragment execution / inter-batch pipelining are "
+                "batch-planned (dgcc/quecc) features; the scheduled "
+                "family's clusters are txn-granular"
+            )
+            assert self.state_layout == "packed", (
+                "the frozen legacy engine predates fragment execution"
+            )
+        if self.inter_batch_pipeline:
+            assert self.fragment_exec, (
+                "inter-batch pipelining admits level-0 *fragments*: "
+                "enable fragment_exec"
+            )
+        assert self.n_planner_lanes >= 0
+        assert self.epoch_interval_rounds >= 0
+        if self.n_planner_lanes:
+            assert self.is_batch_planned, (
+                "the planner-lane throughput model charges *batch* "
+                "planning/scheduling: it applies to dgcc/quecc/"
+                "scheduled only"
+            )
+        if self.n_planner_lanes or self.epoch_interval_rounds:
+            assert self.state_layout == "packed", (
+                "the frozen legacy engine predates the planner-lane "
+                "model and open epoch arrival"
+            )
+        if self.epoch_interval_rounds:
+            assert self.protocol != "partitioned_store", (
+                "open epoch arrival is not modeled for the H-Store "
+                "per-lane admission streams"
+            )
+        assert self.admission_policy in (
+            "none", "bounded_backlog", "token_bucket", "deadline_shed"
+        ), self.admission_policy
+        assert self.backoff_mode in ("fixed", "exp"), self.backoff_mode
+        assert self.arrival_pattern in (
+            "uniform", "burst", "diurnal"
+        ), self.arrival_pattern
+        assert self.retry_budget >= 0
+        if self.admission_policy != "none":
+            assert self.epoch_interval_rounds > 0, (
+                "admission policies gate the open-arrival backlog: "
+                "set epoch_interval_rounds"
+            )
+            assert not self.inter_batch_pipeline, (
+                "admission policies skip whole epochs at batch "
+                "rollover, which the pipelined level-0 cursor does "
+                "not model"
+            )
+            if self.admission_policy == "bounded_backlog":
+                assert self.backlog_cap > 0
+            if self.admission_policy == "token_bucket":
+                assert self.token_interval_rounds > 0
+                assert self.token_burst > 0
+            if self.admission_policy == "deadline_shed":
+                assert self.deadline_rounds > 0
+        if self.retry_budget or self.backoff_mode != "fixed":
+            assert not self.is_batch_planned, (
+                "batch-planned execution has no abort path: retry "
+                "budgets and backoff shaping do not apply"
+            )
+        if self.arrival_pattern != "uniform":
+            assert self.epoch_interval_rounds > 0, (
+                "bursty arrival shapes the open-arrival schedule: "
+                "set epoch_interval_rounds"
+            )
+            assert self.burst_period_epochs > 0
+            if self.arrival_pattern == "burst":
+                assert 0 < self.burst_on_epochs <= self.burst_period_epochs
+        if (
+            self.admission_policy != "none"
+            or self.retry_budget
+            or self.backoff_mode != "fixed"
+            or self.arrival_pattern != "uniform"
+        ):
+            assert self.state_layout == "packed", (
+                "the frozen legacy engine predates the overload "
+                "robustness layer"
+            )
+        assert self.rounds_per_dispatch >= 1, self.rounds_per_dispatch
+        assert self.release_path in ("csr", "dense"), self.release_path
+        assert self.kernel_impl in ("auto", "jnp", "pallas"), self.kernel_impl
+        if self.release_path != "csr" or self.kernel_impl != "auto":
+            assert self.state_layout == "packed", (
+                "the frozen legacy engine has a single (dense, jnp) "
+                "grant/wait-for formulation"
+            )
+
+    @property
+    def n_slots(self) -> int:
+        return self.n_exec * self.window
+
+    @property
+    def is_orthrus(self) -> bool:
+        return self.protocol == "orthrus"
+
+    @property
+    def is_batch_planned(self) -> bool:
+        return self.protocol in ("dgcc", "quecc", "scheduled")
+
+    @property
+    def dispatch_rounds(self) -> int:
+        return 1 << (self.rounds_per_dispatch - 1).bit_length()
+
+    @property
+    def is_dynamic_2pl(self) -> bool:
+        return self.protocol.startswith("twopl")
+
+    @property
+    def deadlock_scheme(self) -> str:
+        return {
+            "twopl_waitdie": "waitdie",
+            "twopl_waitfor": "waitfor",
+            "twopl_dreadlocks": "dreadlocks",
+        }.get(self.protocol, "none")
+
+    def trace_statics(self) -> tuple:
+        """The config fields the step computation depends on (the
+        reference's compile-cache key; the port keeps it for parity)."""
+        return (
+            self.protocol,
+            self.n_exec,
+            self.n_cc,
+            self.window,
+            self.split_index,
+            self.event_leap,
+            self.state_layout,
+            self.fragment_exec,
+            self.inter_batch_pipeline,
+            self.n_planner_lanes,
+            self.epoch_interval_rounds > 0,
+            self.admission_policy,
+            self.retry_budget > 0,
+            self.backoff_mode,
+            self.arrival_pattern != "uniform",
+            self.dispatch_rounds,
+            self.release_path,
+            self.kernel_impl,
+            self.cost,
+        )
+
+
+def check_ported(cfg: EngineConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not run."""
+    if cfg.protocol not in PORTED_PROTOCOLS:
+        raise NotImplementedError(
+            f"protocol {cfg.protocol!r} is not ported yet "
+            f"(slice {_SLICE_OF_PROTOCOL[cfg.protocol]})"
+        )
+    if cfg.epoch_interval_rounds > 0:
+        raise NotImplementedError(
+            "open epoch arrival (epoch_interval_rounds > 0) and the "
+            "overload layer are not ported yet (slice 3)"
+        )
+    if cfg.retry_budget > 0 or cfg.backoff_mode != "fixed":
+        raise NotImplementedError(
+            "retry budgets and exponential backoff (the overload layer) "
+            "are not ported yet (slice 3)"
+        )
+    if cfg.dispatch_rounds > 1:
+        raise NotImplementedError(
+            "rounds_per_dispatch > 1 is not ported yet (slice 3)"
+        )
+    if cfg.release_path != "csr":
+        raise NotImplementedError(
+            'release_path="dense" is not ported yet (slice 3)'
+        )
+    if cfg.state_layout != "packed":
+        raise NotImplementedError(
+            'state_layout="legacy" is not ported yet (slice 4)'
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanMeta:
+    """Static (shape-only) description of a plan."""
+
+    n_txns: int  # N
+    max_keys: int  # K
+    num_records: int  # R, padded to a pow2 bucket by _compact_keys
+    lane_cols: int = 0  # H-Store lane_stream width; 0 = absent
+    pred_width: int = 0  # batch schedule: pred_pad columns
+    num_batches: int = 0  # batch schedule: NB
+    n_frags: int = 0  # fragment mode: total fragments F
+    frag_pred_width: int = 0  # fragment mode: frag_pred_pad columns
+
+
+@dataclasses.dataclass
+class SimResult:
+    commits: int
+    aborts_deadlock: int
+    aborts_ollp: int
+    wasted_ops: int
+    rounds: int
+    sim_seconds: float
+    throughput_txn_s: float
+    breakdown: dict[str, float]  # exec-lane time fractions
+    raw: dict[str, Any]
+    # repro_torch.core.metrics.Metrics: latency histogram + percentiles,
+    # queue trajectories, extended breakdown
+    metrics: Any = None
+
+
+def plan_meta(cfg: EngineConfig, plan: planner_lib.Plan) -> PlanMeta:
+    """Shape signature of a plan."""
+    if cfg.is_batch_planned:
+        raise NotImplementedError(
+            "batch-planned protocols are not ported yet (slice 2)"
+        )
+    return PlanMeta(
+        n_txns=plan.keys.shape[0],
+        max_keys=plan.keys.shape[1],
+        num_records=plan.num_records,
+        lane_cols=0 if plan.lane_stream is None else plan.lane_stream.shape[1],
+    )
+
+
+def qgrid_interval(cfg: EngineConfig) -> int:
+    """Round spacing of the queue-depth sample grid: QDEPTH_SAMPLES
+    points cover (0, max_rounds] for any budget."""
+    return max(1, -(-cfg.max_rounds // QDEPTH_SAMPLES))
+
+
+def _epoch_schedule_arrays(cfg: EngineConfig) -> tuple[np.ndarray, int, int]:
+    """One period of the bursty epoch-arrival schedule:
+    ``(sched [SP], period_rounds, SP)``."""
+    sched, period = epoch_arrival_schedule(
+        cfg.arrival_pattern,
+        cfg.epoch_interval_rounds,
+        cfg.burst_period_epochs,
+        cfg.burst_on_epochs,
+    )
+    return sched.astype(np.int64), int(period), len(sched)
+
+
+def _policy_scalars(cfg: EngineConfig) -> dict:
+    """Scalar parameters of the active overload-robustness policy."""
+    p: dict = {}
+    i32 = np.int32
+    if cfg.admission_policy == "bounded_backlog":
+        p["pol_cap"] = np.asarray(cfg.backlog_cap, i32)
+    elif cfg.admission_policy == "token_bucket":
+        p["pol_tb_iv"] = np.asarray(cfg.token_interval_rounds, i32)
+        p["pol_tb_burst"] = np.asarray(cfg.token_burst, i32)
+    elif cfg.admission_policy == "deadline_shed":
+        p["pol_deadline"] = np.asarray(cfg.deadline_rounds, i32)
+    if cfg.retry_budget > 0:
+        p["pol_retry_budget"] = np.asarray(cfg.retry_budget, i32)
+    if cfg.backoff_mode == "exp":
+        p["pol_bo_max"] = np.asarray(cfg.backoff_max_rounds, i32)
+    return p
+
+
+def plan_device(cfg: EngineConfig, plan: planner_lib.Plan) -> dict:
+    """The plan arrays the step reads, as numpy: the lock-table
+    protocols' entries of ``repro.core.engine.plan_device``, open arrival
+    and policy scalars included. ``convert.plan_from_numpy`` moves them
+    to a device.
+    """
+    if cfg.is_batch_planned:
+        raise NotImplementedError(
+            "batch-planned protocols are not ported yet (slice 2)"
+        )
+    keys = np.asarray(plan.keys, np.int32)
+    modes = np.asarray(plan.modes, np.int32)
+    part = np.asarray(plan.part, np.int32)
+    nkeys = np.asarray(plan.nkeys, np.int32)
+    exec_ops = np.asarray(plan.exec_ops, np.int32)
+    ollp = np.asarray(plan.ollp, bool)
+    ollp_miss = np.asarray(plan.ollp_miss, bool)
+    p = dict(
+        keys=keys,
+        modes=modes,
+        part=part,
+        nkeys=nkeys,
+        exec_ops=exec_ops,
+        ollp=ollp,
+        ollp_miss=ollp_miss,
+        txn_scalars=np.stack(
+            [nkeys, exec_ops, ollp.astype(np.int32),
+             ollp_miss.astype(np.int32)], axis=1
+        ),
+    )
+    if plan.lane_stream is not None:
+        p["lane_stream"] = np.asarray(plan.lane_stream, np.int32)
+    if cfg.epoch_interval_rounds > 0:
+        # open arrival: txn i arrives with its epoch (epoch-sized slices
+        # of submission order); the workload wraps modulo N
+        n = keys.shape[0]
+        b = max(int(plan.epoch_txns), 1)
+        iv = int(cfg.epoch_interval_rounds)
+        n_ep = -(-n // b)
+        if cfg.arrival_pattern != "uniform":
+            sched_arr, period, sp = _epoch_schedule_arrays(cfg)
+            reps = -(-n_ep // sp)
+            ep_arr = (
+                np.tile(sched_arr, reps)
+                + np.repeat(np.arange(reps, dtype=np.int64) * period, sp)
+            )[:n_ep]
+            p["arrive_round"] = ep_arr[
+                np.arange(n, dtype=np.int64) // b
+            ].astype(np.int32)
+            p["arrive_cycle"] = np.asarray(reps * period, np.int32)
+            p["ep_arrive"] = ep_arr.astype(np.int32)
+        else:
+            p["arrive_round"] = (
+                (np.arange(n, dtype=np.int64) // b) * iv
+            ).astype(np.int32)
+            p["arrive_cycle"] = np.asarray(n_ep * iv, np.int32)
+        p["epoch_txns"] = np.asarray(b, np.int32)
+        p["epoch_interval"] = np.asarray(iv, np.int32)
+        p.update(_policy_scalars(cfg))
+    elif cfg.backoff_mode == "exp" or cfg.retry_budget > 0:
+        p.update(_policy_scalars(cfg))
+    p["qgrid_iv"] = np.asarray(qgrid_interval(cfg), np.int32)
+    return p
+
+
+def rebase_enq(s: dict) -> dict:
+    """Rebase enqueue stamps against the minimum live stamp (bit-exact:
+    grant decisions depend only on stamp differences among live
+    entries); see ``repro.core.engine.rebase_enq``."""
+    live = s["want"] | s["granted"]
+    m = torch.where(live, s["enq"], _IMAX).min()
+    delta = torch.minimum(m, s["enq_ctr"]) - 1
+    s = dict(s)
+    s["enq"] = s["enq"] - delta
+    s["enq_ctr"] = s["enq_ctr"] - delta
+    return s
+
+
+def _state0(cfg: EngineConfig, num_records: int, T: int, K: int,
+            device: torch.device | str = "cuda") -> dict:
+    """Initial round state, with the extra dropped-write row on every
+    per-record array (see the module docstring)."""
+    check_ported(cfg)
+    R = num_records
+    dev = torch.device(device)
+
+    def z(*shape, dtype=I32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=I32, device=dev)
+
+    slots = z(SLOT_F, T)
+    slots[C_TID] = -1
+    heat = z(R + 1, 3)
+    heat[:, 0] = -10
+    line = z(R + 1, 2)
+    line[:, 1] = -1
+    s = dict(
+        r=z(),
+        next_txn=z(),
+        enq_ctr=torch.ones((), dtype=I32, device=dev),
+        slots=slots,
+        want=z(T, K, dtype=torch.bool),
+        granted=z(T, K, dtype=torch.bool),
+        enq=z(T, K),
+        adm_done=z(T, K, dtype=torch.bool),
+        rel_done=z(T, K, dtype=torch.bool),
+        reach=z(T, T, dtype=torch.bool),
+        wh=full((R + 1,), -1),
+        rc=z(R + 1),
+        heat=heat,
+        line=line,
+        commits=z(),
+        aborts_dl=z(),
+        aborts_ollp=z(),
+        wasted=z(),
+        cat=z(NCAT),
+        steps=z(),
+        lat_hist=z(LAT_BUCKETS),
+        q_depth=z(QDEPTH_SAMPLES),
+        q_inflight=z(QDEPTH_SAMPLES),
+    )
+    if cfg.protocol != "orthrus":
+        # carried per-record same-round contention sums (stage 9)
+        s["agg_sum"] = z(R + 1, 3)
+        s["agg_prev_idx"] = full((T, K), R)
+        s["agg_prev_upd"] = z(T, K, 3)
+    return s
+
+
+def make_step(cfg: EngineConfig, meta: PlanMeta,
+              device: torch.device | str = "cuda"):
+    """Build the single-round transition for this config and plan shape.
+
+    Returns ``step(p, s, r_end)``: ``p`` the plan tensors (see
+    :func:`plan_device`), ``s`` the round state, ``r_end`` the exclusive
+    chunk bound (an int32 0-d tensor) that event leaps are clamped to.
+    The step returns a new state dict; it updates the per-record arrays
+    in place.
+    """
+    check_ported(cfg)
+    dev = torch.device(device)
+    cm = cfg.cost
+    T, K = cfg.n_slots, meta.max_keys
+    R = meta.num_records
+    N = meta.n_txns
+    W = cfg.window
+    n_cc = max(cfg.n_cc, 1)
+    cap_keys = cm.cc_keys_per_round
+    orthrus = cfg.is_orthrus
+    if meta.lane_cols > 0:
+        raise NotImplementedError(
+            "H-Store lane streams (partitioned_store) are not ported yet "
+            "(slice 3)"
+        )
+
+    def const(v):
+        return torch.tensor(v, dtype=I32, device=dev)
+
+    lane_of = torch.arange(T, dtype=I32, device=dev) // W
+    lane_idx = lane_of.long()
+    slot_ids = torch.arange(T, dtype=I32, device=dev)
+    kk = torch.arange(K, dtype=I32, device=dev)
+    lat_pow2 = torch.tensor([1 << k for k in range(LAT_BUCKETS - 1)],
+                            dtype=I32, device=dev)
+    qgrid_pos = torch.arange(QDEPTH_SAMPLES, dtype=I32, device=dev) + 1
+    ent_slot = slot_ids[:, None].expand(T, K).reshape(-1)
+    lane2d = lane_of[:, None].expand(T, K)
+    # within-slot key order (stage 4): [1, K, K] "column j before column i"
+    k_before = (kk[None, None, :] < kk[None, :, None])
+    c_write, c_read = const(REQ_WRITE), const(REQ_READ)
+    c_release, c_none = const(REQ_RELEASE), const(REQ_NONE)
+    c_zero, c_one = const(0), const(1)
+    c_wait, c_msg, c_idle = const(CAT_WAIT), const(CAT_MSG), const(CAT_IDLE)
+    c_exec = const(CAT_EXEC)
+    c_empty, c_backoff = const(EMPTY), const(BACKOFF)
+
+    lock_op_cycles = cm.lock_op_cycles
+    shared_index = not cfg.split_index
+    exec_cycles_per_op = cm.exec_op_cycles + (
+        cm.shared_index_penalty_cycles if shared_index else 0
+    )
+    # the grant decision over the sorted entries: the lock_grant kernel
+    # (its plain version for CPU tensors) or the plain formulation
+    if orthrus and use_kernel(cfg.kernel_impl, dev):
+        from repro_torch.kernels.lock_grant.ops import lock_grant_sorted
+
+        def grant_sorted(keys, kind, wh_free, rc):
+            return lock_grant_sorted(keys, kind, wh_free, rc)[0]
+    else:
+        grant_sorted = sorted_grant
+
+    def rounds_of(cyc):
+        return (cyc + cm.cycles_per_round - 1) // cm.cycles_per_round
+
+    exec_rounds_one = rounds_of(exec_cycles_per_op)
+
+    def take_col(a, col):
+        """a[t, col[t]] for a [T, K] array and a [T] column index."""
+        return torch.gather(a, 1, col[:, None]).squeeze(1)
+
+    def step(p, s, r_end):
+        s = dict(s)
+        r = s["r"]
+        wkeys = p["keys"]
+        wmodes = p["modes"]
+        wpart = p["part"]
+        sc_all = p["txn_scalars"]  # [N, 4] = (nkeys, exec_ops, ollp, miss)
+
+        sl = s["slots"]
+        tid = sl[C_TID]
+        widx = sl[C_WIDX]
+        lane_ctr = sl[C_LANE_CTR]
+        ts = sl[C_TS]
+        phase = sl[C_PHASE]
+        committing = sl[C_COMMITTING] != 0
+        busy_until = sl[C_BUSY_UNTIL]
+        busy_kind = sl[C_BUSY_KIND]
+        kptr = sl[C_KPTR]
+        attempt = sl[C_ATTEMPT]
+        ccptr = sl[C_CCPTR]
+        msg_arrive = sl[C_MSG_ARRIVE]
+        msg_stage = sl[C_MSG_STAGE]
+        release_at = sl[C_RELEASE_AT]
+        waited = sl[C_WAITED] != 0
+        dl_debt = sl[C_DL_DEBT]
+        arrive = sl[C_ARRIVE]
+
+        free = busy_until <= r
+
+        # ------------------------------------------ 1+2. admission & retry
+        empty = phase == EMPTY
+        rank = torch.cumsum(empty, 0, dtype=I32) - 1
+        new_tid = s["next_txn"] + rank
+        adm = empty
+        new_widx = new_tid % N
+        s["next_txn"] = s["next_txn"] + adm.sum(dtype=I32)
+        retry = (phase == BACKOFF) & free
+        reset = adm | retry
+        widx = torch.where(adm, new_widx, widx)
+        tid = torch.where(adm, new_tid, tid)
+        ts = torch.where(adm, new_tid, ts)
+        arrive = torch.where(adm, r, arrive)
+        attempt = torch.where(
+            adm, c_zero, torch.where(retry, attempt + 1, attempt)
+        )
+        wsafe = torch.where(tid >= 0, widx % N, 0).long()
+        keys = wkeys[wsafe]
+        modes = wmodes[wsafe]
+        ccids = wpart[wsafe] % n_cc
+        sc = sc_all[wsafe]
+        nkeys = sc[:, 0]
+        execops = sc[:, 1]
+        ollp = sc[:, 2] != 0
+        miss = sc[:, 3] != 0
+        kvalid = kk[None, :] < nkeys[:, None]
+        init_busy = rounds_of(
+            cm.txn_fixed_cycles + torch.where(ollp, cm.recon_cycles, 0)
+        ).to(I32)
+        phase = torch.where(reset, const(INIT), phase)
+        busy_until = torch.where(
+            adm,
+            r + init_busy,
+            torch.where(retry, r + rounds_of(cm.txn_fixed_cycles),
+                        busy_until),
+        )
+        busy_kind = torch.where(reset, const(CAT_LOCK), busy_kind)
+        keep = ~reset[:, None]
+        for f in ("want", "granted", "adm_done", "rel_done"):
+            s[f] = s[f] & keep
+        kptr = torch.where(reset, c_zero, kptr)
+        ccptr = torch.where(reset, c_zero, ccptr)
+        waited = waited & ~reset
+
+        free = busy_until <= r
+
+        # ------------------------------------------------ 3. INIT -> acquire
+        start = (phase == INIT) & free & (tid >= 0)
+        if orthrus:
+            phase = torch.where(start, const(MSG), phase)
+            msg_stage = torch.where(start, c_zero, msg_stage)
+            msg_arrive = torch.where(start, r + cm.msg_hop_rounds, msg_arrive)
+        else:
+            phase = torch.where(start, const(ACQ), phase)
+
+        # ------------------------------------------------ 4. ORTHRUS CC work
+        if orthrus:
+            def cur_group(ccptr):
+                cc_at = take_col(ccids, torch.clamp(ccptr, max=K - 1).long())
+                return (
+                    (kk[None, :] >= ccptr[:, None])
+                    & kvalid
+                    & (ccids == cc_at[:, None])
+                )
+
+            in_cur_group = cur_group(ccptr)
+            acq_cand = (phase == MSG) & (msg_stage == 0) & (msg_arrive <= r)
+            acq_keys = acq_cand[:, None] & in_cur_group & ~s["adm_done"]
+            rel_cand = (phase == REL) & (release_at <= r)
+            rel_keys = rel_cand[:, None] & s["granted"] & ~s["rel_done"]
+            # rank every active entry within its CC lane by (ts, key
+            # slot): a [T] slot sort plus per-CC prefix counts
+            act2d = acq_keys | rel_keys  # [T, K]
+            cc_act = torch.where(act2d, ccids, n_cc)
+            cnt_tc = torch.zeros(T * (n_cc + 1), dtype=I32, device=dev)
+            cnt_tc.index_add_(
+                0, (slot_ids[:, None] * (n_cc + 1) + cc_act).reshape(-1),
+                torch.ones(T * K, dtype=I32, device=dev),
+            )
+            cnt_tc = cnt_tc.view(T, n_cc + 1)
+            slot_order = torch.sort(ts, stable=True).indices  # ts unique
+            cnt_sorted = cnt_tc[slot_order]
+            excl_sorted = torch.cumsum(cnt_sorted, 0, dtype=I32) - cnt_sorted
+            excl = torch.empty_like(excl_sorted)
+            excl[slot_order] = excl_sorted
+            base_rank = torch.gather(excl, 1, cc_act.long())
+            same_cc_earlier = (
+                (cc_act[:, :, None] == cc_act[:, None, :])
+                & act2d[:, None, :]
+                & k_before
+            )
+            within = same_cc_earlier.sum(-1, dtype=I32)
+            seg_pos2d = base_rank + within + 1  # 1-based within CC lane
+            proc2d = (seg_pos2d <= cap_keys) & act2d
+            s["adm_done"] = s["adm_done"] | (proc2d & acq_keys)
+            # group fully admitted -> requests live in the CC's lock table
+            grp_all = (s["adm_done"] | ~in_cur_group).all(dim=1)
+            admit_now = acq_cand & grp_all
+            new_want = admit_now[:, None] & in_cur_group
+            phase = torch.where(admit_now, const(ACQ), phase)
+            # release processing
+            do_rel = proc2d & rel_keys
+            rel_k = torch.where(do_rel, keys, 0)
+            is_wr = do_rel & (modes == MODE_WRITE)
+            s["wh"][torch.where(is_wr, rel_k, R).reshape(-1).long()] = -1
+            is_rd = do_rel & (modes == MODE_READ)
+            s["rc"].index_add_(
+                0, torch.where(is_rd, rel_k, R).reshape(-1),
+                -is_rd.reshape(-1).to(I32),
+            )
+            s["rel_done"] = s["rel_done"] | do_rel
+            s["granted"] = s["granted"] & ~do_rel
+            rel_entries = torch.zeros((T, K), dtype=torch.bool, device=dev)
+        else:
+            # ------------------------------------------ 5. shared releases
+            rel_now = (phase == REL) & (release_at <= r)
+            rel_entries = rel_now[:, None] & s["granted"]
+            rel_k = torch.where(rel_entries, keys, 0)
+            is_wr = rel_entries & (modes == MODE_WRITE)
+            s["wh"][torch.where(is_wr, rel_k, R).reshape(-1).long()] = -1
+            is_rd = rel_entries & (modes == MODE_READ)
+            s["rc"].index_add_(
+                0, torch.where(is_rd, rel_k, R).reshape(-1),
+                -is_rd.reshape(-1).to(I32),
+            )
+            s["granted"] = s["granted"] & ~rel_entries
+
+        # ------------------------------------------------ 6. requests: want
+        if orthrus:
+            s["want"] = s["want"] | new_want
+            want_new = new_want
+            flat_new = want_new.reshape(-1)
+            new_rank = torch.cumsum(flat_new, 0, dtype=I32) - 1
+            enq_val = (s["enq_ctr"] + new_rank).view(T, K)
+            s["enq"] = torch.where(want_new, enq_val, s["enq"])
+            n_new = flat_new.sum(dtype=I32)
+        else:
+            # single in-flight request at kptr when ACQ & free
+            at_k = kk[None, :] == kptr[:, None]
+            need = (
+                ((phase == ACQ) & free)[:, None]
+                & at_k
+                & kvalid
+                & ~s["granted"]
+                & ~s["want"]
+            )
+            want_new = need
+            s["want"] = s["want"] | need
+            # <= 1 new request per slot: rank over [T]
+            new_t = want_new.any(dim=1)
+            new_rank = torch.cumsum(new_t, 0, dtype=I32) - 1
+            s["enq"] = torch.where(
+                want_new, (s["enq_ctr"] + new_rank)[:, None], s["enq"]
+            )
+            n_new = new_t.sum(dtype=I32)
+        # releases consume stamp ids too
+        s["enq_ctr"] = s["enq_ctr"] + n_new + rel_entries.sum(dtype=I32)
+
+        # ------------------------------------------------ 7. grant pass
+        pend2d = s["want"] & ~s["granted"] & (phase == ACQ)[:, None]
+        newop2d = want_new | rel_entries
+        wh_r, rc_r = s["wh"][:R], s["rc"][:R]
+        if orthrus:
+            ent_kind = torch.where(
+                pend2d,
+                torch.where(modes == MODE_WRITE, c_write, c_read),
+                torch.where(rel_entries, c_release, c_none),
+            ).reshape(-1)
+            ent_key = torch.where(
+                pend2d | rel_entries, keys, KEY_SENTINEL
+            ).reshape(-1)
+            ent_enq = s["enq"].reshape(-1)
+            safe = torch.clamp(ent_key, max=R - 1).long()
+            in_rng = ent_key < R
+            wh_ent = wh_r[safe]
+            wh_free = (wh_ent == -1) & in_rng
+            rcv = torch.where(in_rng, rc_r[safe], 0)
+            order = lex_order(ent_key, ent_enq)
+            g_sorted = grant_sorted(
+                ent_key[order], ent_kind[order], wh_free[order], rcv[order]
+            )
+            grant = torch.empty_like(g_sorted)
+            grant[order] = g_sorted  # unsort
+            grant = grant.view(T, K)
+            # re-entrant grants bypass the FIFO
+            self_grant = (
+                (ent_kind != REQ_NONE)
+                & (ent_kind != REQ_RELEASE)
+                & in_rng
+                & (wh_ent == ent_slot)
+            )
+            grant = grant | self_grant.view(T, K)
+
+            # apply grants to the lock table
+            gk = torch.where(grant, keys, 0)
+            g_wr = grant & (modes == MODE_WRITE)
+            g_rd = grant & (modes == MODE_READ)
+            wr_idx = torch.where(g_wr, gk, R).reshape(-1).long()
+            s["wh"][wr_idx] = ent_slot
+            s["rc"].index_add_(
+                0, torch.where(g_rd, gk, R).reshape(-1),
+                g_rd.reshape(-1).to(I32),
+            )
+        else:
+            # single pending request per slot, at column kptr: compact
+            # CSR grant over the <= T requests sorted by (key, stamp)
+            kptr_c = torch.clamp(kptr, max=K - 1).long()
+            pend_t = take_col(pend2d, kptr_c)
+            rkey = take_col(keys, kptr_c)
+            renq = take_col(s["enq"], kptr_c)
+            rmode = take_col(modes, kptr_c)
+            is_wr_req = pend_t & (rmode == MODE_WRITE)
+            skey = torch.where(pend_t, rkey, _IMAX)
+            order = lex_order(skey, renq)
+            ks = skey[order]
+            eqs = renq[order]
+            seg_id = (torch.cumsum(segment_starts(ks), 0, dtype=I32) - 1).long()
+            imax_t = torch.full((T,), _IMAX, dtype=I32, device=dev)
+            min_req_seg = imax_t.scatter_reduce(
+                0, seg_id, eqs, "amin", include_self=True
+            )
+            min_wr_seg = imax_t.scatter_reduce(
+                0, seg_id, torch.where(is_wr_req[order], eqs, _IMAX), "amin",
+                include_self=True,
+            )
+            min_req = torch.empty_like(renq)
+            min_req[order] = min_req_seg[seg_id]
+            min_wr = torch.empty_like(renq)
+            min_wr[order] = min_wr_seg[seg_id]
+            rkey_c = torch.clamp(rkey, max=R - 1).long()
+            whv = wh_r[rkey_c]
+            rc_t = rc_r[rkey_c]
+            wh_free_t = whv == -1
+            # enq stamps are unique, so strict compares are exact
+            grant_rd = wh_free_t & (min_wr > renq)
+            grant_wr = wh_free_t & (rc_t == 0) & (min_req == renq)
+            grant_t = pend_t & torch.where(
+                rmode == MODE_WRITE, grant_wr, grant_rd
+            )
+            grant_t = grant_t | (pend_t & (whv == slot_ids))
+            grant = pend2d & grant_t[:, None]
+
+            g_wr_t = grant_t & (rmode == MODE_WRITE)
+            g_rd_t = grant_t & (rmode == MODE_READ)
+            s["wh"][torch.where(g_wr_t, rkey, R).long()] = slot_ids
+            s["rc"].index_add_(
+                0, torch.where(g_rd_t, rkey, R), g_rd_t.to(I32)
+            )
+        s["granted"] = s["granted"] | grant
+
+        # ------------------------------------------------ 8. deadlock logic
+        # planned protocols: no deadlock handling, abort_dl == 0
+
+        # ------------------------------------------------ 9. line-cost model
+        if not orthrus:
+            newop = newop2d
+            mutate = newop  # no deadlock aborts: every fresh op enqueues
+            active2d = pend2d | rel_entries
+            aidx = torch.where(active2d, keys, R)
+            sum_upd = torch.stack(
+                [active2d.to(I32), newop.to(I32), mutate.to(I32)], dim=-1
+            )  # [T, K, 3]
+            s["agg_sum"].index_add_(
+                0,
+                torch.cat([s["agg_prev_idx"], aidx], 0).reshape(-1),
+                torch.cat([-s["agg_prev_upd"], sum_upd], 0).reshape(-1, 3),
+            )
+            agg_s = s["agg_sum"]
+            s["agg_prev_idx"] = aidx
+            s["agg_prev_upd"] = sum_upd
+            e = r >> EPOCH_BITS
+            opk_r = torch.clamp(torch.where(newop, keys, 0), max=R - 1).long()
+            seg = agg_s[opk_r]  # [T, K, 3], this round's per-key totals
+            new_in_seg = seg[..., 1]
+            mut_in_seg = seg[..., 2]
+            heat_k = s["heat"][opk_r]  # [T, K, 3] = (ep, cnt_cur, cnt_prev)
+            ep_k = heat_k[..., 0]
+            cur_k = heat_k[..., 1]
+            prev_k = heat_k[..., 2]
+            line_k = s["line"][opk_r]  # [T, K, 2] = (lnf, last_lane)
+            sharers = torch.where(
+                ep_k == e,
+                torch.maximum(prev_k, cur_k),
+                torch.where(ep_k == e - 1, cur_k, c_zero),
+            )
+            remote = line_k[..., 1] != lane2d
+            coh = torch.where(
+                remote,
+                cm.coherence_cycles_per_sharer
+                * torch.clamp(sharers, 1, cfg.n_exec - 1),
+                c_zero,
+            )
+            dur = rounds_of(lock_op_cycles + coh)
+            lnf_cur = line_k[..., 0]
+            backlog = torch.clamp(
+                torch.where(mutate, lnf_cur - r, c_zero), min=0
+            )
+            charge = torch.where(newop, backlog + dur, c_zero).sum(
+                dim=1, dtype=I32
+            )
+            # occupancy: same-round queue mutations serialize on the line
+            occupy = torch.where(mutate, mut_in_seg * dur, c_zero)
+            tgt = torch.maximum(lnf_cur, r) + occupy
+            opk_heat = torch.where(newop, opk_r, R).reshape(-1)
+            # lnf only at mutating entries (INT32_MIN is the max identity);
+            # last_lane at every fresh op
+            line_upd = torch.stack(
+                [torch.where(mutate, tgt, const(I32_MIN)), lane2d], dim=-1
+            ).reshape(-1, 2)
+            s["line"].scatter_reduce_(
+                0, opk_heat[:, None].expand(-1, 2), line_upd, "amax",
+                include_self=True,
+            )
+            new_prev = torch.where(
+                ep_k == e, prev_k, torch.where(ep_k == e - 1, cur_k, c_zero)
+            )
+            new_cur = torch.where(ep_k == e, cur_k, c_zero) + new_in_seg
+            heat_upd = torch.stack(
+                [e.expand(T, K), new_cur, new_prev], dim=-1
+            ).reshape(-1, 3)
+            # values are per-key identical, so duplicate keys agree
+            s["heat"][opk_heat] = heat_upd
+            charged = charge > 0
+            busy_until = torch.where(
+                charged, torch.maximum(busy_until, r) + charge, busy_until
+            )
+            busy_kind = torch.where(charged, const(CAT_LOCK), busy_kind)
+
+        # ------------------------------------------------ 10. transitions
+        free = busy_until <= r
+        if not orthrus:  # deadlock_free
+            cur_granted = take_col(
+                s["granted"], torch.clamp(kptr, max=K - 1).long()
+            )
+            go = (phase == ACQ) & free & cur_granted
+            kptr = torch.where(go, kptr + 1, kptr)
+            alldone = go & (kptr >= nkeys)
+            phase = torch.where(alldone, const(EXEC), phase)
+            busy_until = torch.where(
+                alldone,
+                torch.maximum(busy_until, r) + execops * exec_rounds_one,
+                busy_until,
+            )
+            busy_kind = torch.where(alldone, c_exec, busy_kind)
+        else:
+            in_cur_group = cur_group(ccptr)
+            grp_done = (phase == ACQ) & (s["granted"] | ~in_cur_group).all(
+                dim=1
+            )
+            nxt_cc = torch.where(
+                (kk[None, :] >= ccptr[:, None]) & kvalid & ~in_cur_group,
+                kk[None, :],
+                K,
+            ).amin(dim=1)
+            more = grp_done & (nxt_cc < K)
+            ccptr = torch.where(more, nxt_cc, ccptr)
+            s["adm_done"] = s["adm_done"] & ~more[:, None]
+            phase = torch.where(grp_done, const(MSG), phase)
+            msg_stage = torch.where(
+                grp_done, torch.where(more, c_zero, c_one), msg_stage
+            )
+            msg_arrive = torch.where(
+                grp_done, r + cm.msg_hop_rounds, msg_arrive
+            )
+            # response arrives -> READY
+            resp = (phase == MSG) & (msg_stage == 1) & (msg_arrive <= r)
+            phase = torch.where(resp, const(READY), phase)
+            # exec-lane scheduling: oldest READY per idle lane starts
+            # (lanes are W consecutive slots)
+            lane_busy = ((phase == EXEC) & ~free).view(cfg.n_exec, W).any(1)
+            ready = phase == READY
+            ready_ts = torch.where(ready, ts, _IMAX)
+            lane_min = ready_ts.view(cfg.n_exec, W).amin(dim=1)
+            startx = (
+                ready
+                & (ready_ts == lane_min[lane_idx])
+                & ~lane_busy[lane_idx]
+            )
+            phase = torch.where(startx, const(EXEC), phase)
+            busy_until = torch.where(
+                startx, r + execops * exec_rounds_one, busy_until
+            )
+            busy_kind = torch.where(startx, c_exec, busy_kind)
+
+        # EXEC finished -> release (commit, or OLLP-miss abort+retry)
+        free = busy_until <= r
+        fin = (phase == EXEC) & free
+        is_miss = fin & miss & (attempt == 0)
+        s["aborts_ollp"] = s["aborts_ollp"] + is_miss.sum(dtype=I32)
+        s["wasted"] = s["wasted"] + torch.where(is_miss, execops, c_zero).sum(
+            dtype=I32
+        )
+        phase = torch.where(fin, const(REL), phase)
+        committing = torch.where(fin, ~is_miss, committing)
+        rel_delay = cm.msg_hop_rounds if orthrus else 0
+        release_at = torch.where(fin, r + rel_delay, release_at)
+        s["rel_done"] = s["rel_done"] & ~fin[:, None]
+        s["want"] = s["want"] & ~fin[:, None]
+
+        # REL complete -> EMPTY (commit) or BACKOFF (retry)
+        rel_done_all = (
+            (phase == REL) & (release_at <= r) & ~s["granted"].any(dim=1)
+        )
+        com = rel_done_all & committing
+        s["commits"] = s["commits"] + com.sum(dtype=I32)
+        # commit-latency histogram (bucket = count of powers of two <= lat)
+        lat = r - arrive
+        lat_b = (lat[:, None] >= lat_pow2[None, :]).sum(dim=1, dtype=I32)
+        s["lat_hist"] = s["lat_hist"].index_add(
+            0, torch.where(com, lat_b, 0), com.to(I32)
+        )
+        back = rel_done_all & ~committing
+        phase = torch.where(
+            rel_done_all, torch.where(committing, c_empty, c_backoff), phase
+        )
+        tid = torch.where(com, const(-1), tid)
+        busy_until = torch.where(
+            back, r + cm.abort_backoff_rounds, busy_until
+        )
+        s["want"] = s["want"] & ~rel_done_all[:, None]
+
+        # ------------------------------------------------ 11. lane accounting
+        busy = busy_until > r
+        slot_cat = torch.where(
+            busy,
+            busy_kind,
+            torch.where(
+                (phase == ACQ) & (s["want"] & ~s["granted"]).any(dim=1),
+                c_wait,
+                torch.where(
+                    (phase == MSG) | (phase == READY) | (phase == REL),
+                    c_msg,
+                    c_idle,
+                ),
+            ),
+        )
+        if orthrus:
+            # a lane is "exec" if its running slot is busy executing; else
+            # classify by the most advanced outstanding slot state
+            def lane_any(x):
+                return x.view(cfg.n_exec, W).any(dim=1)
+
+            lane_cat = torch.where(
+                lane_any(busy & (slot_cat == CAT_EXEC)),
+                c_exec,
+                torch.where(
+                    lane_any(slot_cat == CAT_WAIT),
+                    c_wait,
+                    torch.where(lane_any(slot_cat == CAT_MSG), c_msg, c_idle),
+                ),
+            )
+            cat_idx = lane_cat
+        else:
+            cat_idx = slot_cat
+        cat_counts = torch.zeros(NCAT, dtype=I32, device=dev).index_add_(
+            0, cat_idx, torch.ones_like(cat_idx)
+        )
+
+        # ------------------------------------------------ 12. event leap
+        # advance straight to the next round at which any slot can act
+        if cfg.event_leap:
+            busy2 = busy_until > r
+            free2 = ~busy2
+            cand = torch.where(busy2, busy_until, _IMAX)
+            cand = torch.minimum(cand, torch.where(
+                (phase == MSG) & (msg_arrive > r), msg_arrive, _IMAX))
+            cand = torch.minimum(cand, torch.where(
+                (phase == REL) & (release_at > r), release_at, _IMAX))
+            act_next = (
+                (phase == EMPTY)
+                | ((phase == MSG) & (msg_arrive <= r))
+                | ((phase == REL) & (release_at <= r))
+                | (free2 & ((phase == INIT) | (phase == BACKOFF)))
+            )
+            if orthrus:
+                # a READY slot starts the round its lane goes idle
+                lane_exec_busy = (
+                    ((phase == EXEC) & busy2).view(cfg.n_exec, W).any(dim=1)
+                )
+                act_next = act_next | (
+                    (phase == READY) & ~lane_exec_busy[lane_idx]
+                )
+            else:
+                # an acquiring slot with no pending request places its
+                # next one immediately
+                blocked = take_col(
+                    s["want"] & ~s["granted"],
+                    torch.clamp(kptr, max=K - 1).long(),
+                )
+                act_next = act_next | ((phase == ACQ) & free2 & ~blocked)
+            cand = torch.where(act_next, r + 1, cand)
+            nxt = torch.minimum(torch.maximum(cand.min(), r + 1), r_end)
+        else:
+            nxt = r + 1
+        leap = nxt - r
+        s["cat"] = s["cat"] + cat_counts * leap
+        s["steps"] = s["steps"] + 1
+        s["r"] = nxt
+        # queue samples at every grid point in (r, nxt]
+        qgrid = qgrid_pos * p["qgrid_iv"]
+        qm = (qgrid > r) & (qgrid <= nxt)
+        s["q_inflight"] = torch.where(
+            qm, (tid >= 0).sum(dtype=I32), s["q_inflight"]
+        )
+        s["slots"] = torch.stack(
+            [tid, widx, lane_ctr, ts, phase, committing.to(I32),
+             busy_until, busy_kind, kptr, attempt, ccptr, msg_arrive,
+             msg_stage, release_at, waited.to(I32), dl_debt, arrive],
+            dim=0,
+        )
+        return s
+
+    return step
+
+
+def _compact_keys(plan: planner_lib.Plan) -> planner_lib.Plan:
+    """Remap record keys to a dense id space padded to a power-of-two
+    bucket (see ``repro.core.engine._compact_keys``)."""
+    keys = plan.keys
+    uniq, inv = np.unique(keys, return_inverse=True)
+    dense = inv.reshape(keys.shape).astype(np.int32)
+    num = len(uniq)
+    if uniq[-1] == int(KEY_SENTINEL):  # keep padding as sentinel
+        dense = np.where(keys == int(KEY_SENTINEL), int(KEY_SENTINEL), dense)
+        num -= 1
+    num = max(int(num), 1)
+    r_pad = max(16, 1 << (num + (num >> 2) - 1).bit_length())
+    plan = dataclasses.replace(plan, keys=dense, num_records=r_pad)
+    return plan
+
+
+def make_plan(cfg: EngineConfig, workload: Workload) -> planner_lib.Plan:
+    """Plan the workload for the protocol (engine-ready arrays)."""
+    if cfg.protocol == "orthrus":
+        plan = planner_lib.plan_orthrus(workload, cfg.n_cc)
+    elif cfg.protocol == "deadlock_free":
+        plan = planner_lib.plan_sorted(workload)
+    elif cfg.protocol == "partitioned_store":
+        plan = planner_lib.plan_partition_store(workload, cfg.n_exec)
+    elif cfg.protocol == "dgcc":
+        plan = planner_lib.plan_dgcc(
+            workload, workload.cfg.batch_epoch,
+            n_lanes=max(cfg.n_cc, 1), fragments=cfg.fragment_exec,
+        )
+    elif cfg.protocol == "quecc":
+        plan = planner_lib.plan_quecc(
+            workload, max(cfg.n_cc, 1), workload.cfg.batch_epoch,
+            fragments=cfg.fragment_exec,
+        )
+    elif cfg.protocol == "scheduled":
+        plan = planner_lib.plan_scheduled(
+            workload, workload.cfg.batch_epoch, n_lanes=max(cfg.n_exec, 1),
+        )
+    else:
+        plan = planner_lib.plan_dynamic(workload)
+    plan.epoch_txns = workload.cfg.batch_epoch  # open-arrival epoch size
+    if not cfg.is_batch_planned:
+        plan = _compact_keys(plan)
+    return plan
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks
+    for another; asking for CUDA without one raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the port on "
+            "the CPU"
+        )
+    return dev
+
+
+def run_simulation(
+    cfg: EngineConfig,
+    workload: Workload,
+    seed: int = 0,
+    *,
+    device: torch.device | str | None = None,
+) -> SimResult:
+    """Plan the workload for the protocol, then simulate on ``device``
+    (CUDA by default)."""
+    from repro_torch.core import sweep as sweep_lib  # sweep imports us
+
+    del seed  # the workload carries its own seed, as in the reference
+    dev = resolve_device(device)
+    plan = make_plan(cfg, workload)
+    return sweep_lib.simulate_plans(cfg, [plan], device=dev)[0]

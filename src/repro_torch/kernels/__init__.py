@@ -1,0 +1,36 @@
+"""Hand-written CUDA kernels for Hopper, one directory each.
+
+Each kernel directory has:
+  csrc/*.cu — the CUDA C++ source, built at first use by ``_build``
+  ops.py    — the wrapper: checks, allocation, launch, torch-side glue
+  ref.py    — the plain PyTorch version, used for CPU tensors and held
+              against the kernel on the card
+
+  lock_grant — segmented FIFO lock grant (ORTHRUS's grant pass)
+
+A wrapper launches its kernel for a CUDA tensor and raises if it cannot;
+it runs the plain version only for a tensor that lies on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+KERNEL_IMPLS = ("auto", "jnp", "pallas")
+
+
+def use_kernel(kernel_impl: str, device: torch.device | str) -> bool:
+    """Whether the engine goes through a kernel's wrapper for tensors on
+    ``device`` (``EngineConfig.kernel_impl``).
+
+    "jnp" never does: the engine runs its plain PyTorch formulation.
+    "pallas" always does: the wrapper launches the CUDA kernel for a
+    CUDA tensor and runs its plain version for a CPU tensor. "auto"
+    does where the tensors are on a CUDA device. There is no
+    environment override, and no fallback when a build or launch fails.
+    """
+    if kernel_impl not in KERNEL_IMPLS:
+        raise ValueError(f"kernel_impl {kernel_impl!r} not in {KERNEL_IMPLS}")
+    if kernel_impl == "auto":
+        return torch.device(device).type == "cuda"
+    return kernel_impl == "pallas"

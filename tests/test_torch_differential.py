@@ -1,0 +1,63 @@
+"""Whole-run differential: the port's ``run_simulation`` reports exactly
+what ``repro.core.engine.run_simulation`` reports, metrics included."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from golden.regenerate import fingerprint  # noqa: E402
+
+from repro.core import engine as ref_engine  # noqa: E402
+from repro.core import workloads as ref_workloads  # noqa: E402
+from repro_torch.core import engine, workloads  # noqa: E402
+
+WORKLOADS = {
+    "ycsb_hot": dict(kind="ycsb", num_txns=256, num_records=10_000,
+                     num_hot=8, seed=5),
+    "tpcc_ollp": dict(kind="tpcc", num_txns=256, num_warehouses=4,
+                      ollp_miss_prob=0.5, seed=6),
+}
+CELLS = {
+    "orthrus_2_6_2": dict(protocol="orthrus", n_cc=2, n_exec=6, window=2),
+    "orthrus_4_12_4": dict(protocol="orthrus", n_cc=4, n_exec=12, window=4),
+    "df_8": dict(protocol="deadlock_free", n_exec=8),
+    "df_16": dict(protocol="deadlock_free", n_exec=16),
+}
+# warmup off the chunk grid: the host loop splits the chunk at warmup
+SIM = dict(max_rounds=900, warmup_rounds=250, chunk_rounds=200,
+           target_commits=10**9)
+
+
+def _both(eng_kw, wl_kw, sim):
+    ref = ref_engine.run_simulation(
+        ref_engine.EngineConfig(**eng_kw, **sim),
+        ref_workloads.make_workload(ref_workloads.WorkloadConfig(**wl_kw)),
+    )
+    got = engine.run_simulation(
+        engine.EngineConfig(**eng_kw, **sim),
+        workloads.make_workload(workloads.WorkloadConfig(**wl_kw)),
+        device="cpu",
+    )
+    return got, ref
+
+
+@pytest.mark.parametrize("wl", sorted(WORKLOADS))
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_fingerprint_matches_reference(cell, wl):
+    got, ref = _both(CELLS[cell], WORKLOADS[wl], SIM)
+    assert fingerprint(got, include_metrics=True) == fingerprint(
+        ref, include_metrics=True)
+    assert got.raw["steps_executed"] == ref.raw["steps_executed"]
+    assert got.metrics.breakdown_ext == ref.metrics.breakdown_ext
+    assert got.metrics.summary_row() == ref.metrics.summary_row()
+
+
+@pytest.mark.parametrize("cell", ["orthrus_2_6_2", "df_8"])
+def test_target_commits_stop_matches_reference(cell):
+    """The run stops at the first chunk boundary whose measured commits
+    reach the target, in both packages."""
+    sim = dict(SIM, target_commits=8, chunk_rounds=100)
+    got, ref = _both(CELLS[cell], WORKLOADS["ycsb_hot"], sim)
+    assert got.raw["rounds_total"] < sim["max_rounds"]
+    assert fingerprint(got, include_metrics=True) == fingerprint(
+        ref, include_metrics=True)

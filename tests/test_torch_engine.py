@@ -1,0 +1,257 @@
+"""The port's round engine against the JAX reference, step by step, plus
+its own leap-vs-dense identity, config checks and unported paths."""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+from golden.regenerate import fingerprint  # noqa: E402
+
+from repro.core import engine as ref_engine  # noqa: E402
+from repro.core import workloads as ref_workloads  # noqa: E402
+from repro_torch.core import engine, sweep, workloads  # noqa: E402
+from repro_torch.core.convert import (  # noqa: E402
+    plan_from_numpy,
+    state_from_numpy,
+    state_to_numpy,
+)
+
+YCSB = dict(kind="ycsb", num_txns=128, num_records=2000, num_hot=8, seed=1)
+TPCC = dict(kind="tpcc", num_txns=128, num_warehouses=2, ollp_miss_prob=0.5,
+            seed=2)
+ORTHRUS = dict(protocol="orthrus", n_cc=2, n_exec=3, window=2)
+DF = dict(protocol="deadlock_free", n_exec=4)
+SIM = dict(max_rounds=800, warmup_rounds=250, chunk_rounds=200,
+           target_commits=10**9)
+
+
+def _workloads(wl_kw):
+    return (workloads.make_workload(workloads.WorkloadConfig(**wl_kw)),
+            ref_workloads.make_workload(ref_workloads.WorkloadConfig(**wl_kw)))
+
+
+@pytest.mark.parametrize("eng_kw,wl_kw,leap,impl", [
+    (ORTHRUS, YCSB, True, "jnp"),
+    (ORTHRUS, YCSB, False, "jnp"),
+    (ORTHRUS, TPCC, True, "pallas"),
+    (DF, YCSB, True, "jnp"),
+    (DF, YCSB, False, "jnp"),
+    (DF, TPCC, True, "jnp"),
+], ids=["orthrus-leap", "orthrus-dense", "orthrus-tpcc-kernel-wrapper",
+        "df-leap", "df-dense", "df-tpcc"])
+def test_step_matches_reference(eng_kw, wl_kw, leap, impl):
+    """From one carried-across state, >= 200 steps of both engines (with
+    the chunk runner's stamp rebase and chunk bounds) leave every state
+    array equal after every step."""
+    wl, ref_wl = _workloads(wl_kw)
+    cfg = engine.EngineConfig(**eng_kw, event_leap=leap, kernel_impl=impl)
+    ref_cfg = ref_engine.EngineConfig(**eng_kw, event_leap=leap,
+                                      kernel_impl="jnp")
+    ref_plan = ref_engine.make_plan(ref_cfg, ref_wl)
+    meta = ref_engine.plan_meta(ref_cfg, ref_plan)
+    p_np = ref_engine.plan_device(ref_cfg, ref_plan)
+    p_ref = {k: jnp.asarray(v) for k, v in p_np.items()}
+    p = plan_from_numpy(p_np, "cpu")
+    ref_step = jax.jit(ref_engine.make_step(ref_cfg, meta))
+    ref_rebase = jax.jit(ref_engine.rebase_enq)
+    step = engine.make_step(cfg, engine.plan_meta(cfg, engine.make_plan(cfg, wl)),
+                            "cpu")
+
+    s_ref = ref_engine._state0(ref_cfg, ref_plan.num_records, cfg.n_slots,
+                               meta.max_keys)
+    s = state_from_numpy({k: np.asarray(v) for k, v in s_ref.items()}, "cpu")
+    assert sorted(s) == sorted(s_ref)
+    n_steps, r_end = 0, 0
+    while n_steps < 200:
+        r_end += 37  # chunk bounds that clamp leaps
+        while int(s_ref["r"]) < r_end:
+            s_ref = ref_step(p_ref, ref_rebase(s_ref), jnp.int32(r_end))
+            s = step(p, engine.rebase_enq(s), torch.tensor(r_end, dtype=torch.int32))
+            n_steps += 1
+            got = state_to_numpy(s)
+            for k, v in s_ref.items():
+                assert s[k].dtype in (torch.int32, torch.bool), k
+                np.testing.assert_array_equal(
+                    got[k], np.asarray(v), err_msg=f"step {n_steps}: {k}")
+    assert int(s_ref["commits"]) > 0
+
+
+@pytest.mark.parametrize("eng_kw", [ORTHRUS, DF], ids=["orthrus", "df"])
+@pytest.mark.parametrize("wl_kw", [YCSB, TPCC], ids=["ycsb", "tpcc"])
+def test_leap_matches_dense(eng_kw, wl_kw):
+    wl, _ = _workloads(wl_kw)
+    res = {
+        leap: engine.run_simulation(
+            engine.EngineConfig(**eng_kw, event_leap=leap, **SIM), wl,
+            device="cpu")
+        for leap in (True, False)
+    }
+    fps = {k: fingerprint(v, include_metrics=True) for k, v in res.items()}
+    assert fps[True].pop("steps_executed") <= fps[False].pop("steps_executed")
+    assert res[False].raw["steps_executed"] == res[False].raw["rounds_total"]
+    assert fps[True] == fps[False]
+
+
+def test_config_fields_match_reference():
+    mine = dataclasses.fields(engine.EngineConfig)
+    ref = dataclasses.fields(ref_engine.EngineConfig)
+    assert [f.name for f in mine] == [f.name for f in ref]
+    for a, b in zip(mine, ref):
+        if a.name != "cost":
+            assert a.default == b.default, a.name
+    assert dataclasses.asdict(engine.DEFAULT_COST_MODEL) == dataclasses.asdict(
+        ref_engine.DEFAULT_COST_MODEL)
+    assert engine.PROTOCOLS == ref_engine.PROTOCOLS
+    for name in ("SLOT_F", "SLOT_COLS", "BATCH_SLOT_F", "BATCH_SLOT_COLS",
+                 "C_ARRIVE", "BC_ARRIVE", "NCAT", "EPOCH_BITS"):
+        assert getattr(engine, name) == getattr(ref_engine, name), name
+
+
+BAD_CONFIGS = [
+    dict(protocol="nope", n_exec=4),
+    dict(protocol="orthrus", n_exec=4),
+    dict(protocol="quecc", n_exec=4),
+    dict(protocol="scheduled", n_exec=4, state_layout="legacy"),
+    dict(protocol="deadlock_free", n_exec=4, state_layout="flat"),
+    dict(protocol="deadlock_free", n_exec=4, fragment_exec=True),
+    dict(protocol="dgcc", n_exec=4, inter_batch_pipeline=True),
+    dict(protocol="dgcc", n_exec=4, fragment_exec=True, state_layout="legacy"),
+    dict(protocol="deadlock_free", n_exec=4, n_planner_lanes=1),
+    dict(protocol="dgcc", n_exec=4, n_planner_lanes=-1),
+    dict(protocol="deadlock_free", n_exec=4, epoch_interval_rounds=-1),
+    dict(protocol="dgcc", n_exec=4, n_planner_lanes=1, state_layout="legacy"),
+    dict(protocol="partitioned_store", n_exec=4, epoch_interval_rounds=10),
+    dict(protocol="deadlock_free", n_exec=4, admission_policy="drop"),
+    dict(protocol="deadlock_free", n_exec=4, admission_policy="bounded_backlog",
+         backlog_cap=4),
+    dict(protocol="deadlock_free", n_exec=4, admission_policy="bounded_backlog",
+         epoch_interval_rounds=10),
+    dict(protocol="deadlock_free", n_exec=4, admission_policy="token_bucket",
+         epoch_interval_rounds=10, token_interval_rounds=2),
+    dict(protocol="deadlock_free", n_exec=4, admission_policy="deadline_shed",
+         epoch_interval_rounds=10),
+    dict(protocol="dgcc", n_exec=4, n_cc=1, fragment_exec=True,
+         inter_batch_pipeline=True, admission_policy="deadline_shed",
+         epoch_interval_rounds=10, deadline_rounds=5),
+    dict(protocol="deadlock_free", n_exec=4, retry_budget=-1),
+    dict(protocol="dgcc", n_exec=4, retry_budget=2),
+    dict(protocol="quecc", n_exec=4, n_cc=2, backoff_mode="exp"),
+    dict(protocol="deadlock_free", n_exec=4, backoff_mode="linear"),
+    dict(protocol="deadlock_free", n_exec=4, arrival_pattern="zipf"),
+    dict(protocol="deadlock_free", n_exec=4, arrival_pattern="burst",
+         burst_period_epochs=4, burst_on_epochs=2),
+    dict(protocol="deadlock_free", n_exec=4, arrival_pattern="diurnal",
+         epoch_interval_rounds=10),
+    dict(protocol="deadlock_free", n_exec=4, arrival_pattern="burst",
+         epoch_interval_rounds=10, burst_period_epochs=4, burst_on_epochs=5),
+    dict(protocol="deadlock_free", n_exec=4, retry_budget=2,
+         state_layout="legacy"),
+    dict(protocol="deadlock_free", n_exec=4, rounds_per_dispatch=0),
+    dict(protocol="deadlock_free", n_exec=4, release_path="sparse"),
+    dict(protocol="deadlock_free", n_exec=4, kernel_impl="triton"),
+    dict(protocol="deadlock_free", n_exec=4, kernel_impl="pallas",
+         state_layout="legacy"),
+    dict(protocol="deadlock_free", n_exec=4, release_path="dense",
+         state_layout="legacy"),
+]
+
+
+@pytest.mark.parametrize("kw", BAD_CONFIGS, ids=range(len(BAD_CONFIGS)))
+def test_config_asserts_mirror_reference(kw):
+    with pytest.raises(AssertionError):
+        ref_engine.EngineConfig(**kw)
+    with pytest.raises(AssertionError):
+        engine.EngineConfig(**kw)
+
+
+GOOD_CONFIGS = [
+    dict(protocol="orthrus", n_exec=64, n_cc=16, window=4),
+    dict(protocol="deadlock_free", n_exec=80, rounds_per_dispatch=5),
+    dict(protocol="twopl_waitfor", n_exec=8, release_path="dense"),
+    dict(protocol="quecc", n_exec=6, n_cc=4, fragment_exec=True,
+         inter_batch_pipeline=True, n_planner_lanes=2,
+         epoch_interval_rounds=20),
+    dict(protocol="deadlock_free", n_exec=8, epoch_interval_rounds=150,
+         admission_policy="deadline_shed", deadline_rounds=400,
+         retry_budget=3, backoff_mode="exp", arrival_pattern="burst",
+         burst_period_epochs=4, burst_on_epochs=2),
+]
+
+
+@pytest.mark.parametrize("kw", GOOD_CONFIGS, ids=range(len(GOOD_CONFIGS)))
+def test_config_properties_match_reference(kw):
+    mine, ref = engine.EngineConfig(**kw), ref_engine.EngineConfig(**kw)
+    for prop in ("n_slots", "is_orthrus", "is_batch_planned",
+                 "dispatch_rounds", "is_dynamic_2pl", "deadlock_scheme"):
+        assert getattr(mine, prop) == getattr(ref, prop), prop
+    assert mine.trace_statics()[:-1] == ref.trace_statics()[:-1]
+    assert engine.qgrid_interval(mine) == ref_engine.qgrid_interval(ref)
+
+
+UNPORTED = [
+    dict(protocol="twopl_waitdie", n_exec=4),
+    dict(protocol="twopl_waitfor", n_exec=4),
+    dict(protocol="twopl_dreadlocks", n_exec=4),
+    dict(protocol="partitioned_store", n_exec=4),
+    dict(protocol="dgcc", n_exec=4, n_cc=2),
+    dict(protocol="quecc", n_exec=4, n_cc=2),
+    dict(protocol="scheduled", n_exec=4),
+    dict(protocol="deadlock_free", n_exec=4, epoch_interval_rounds=50),
+    dict(protocol="orthrus", n_exec=4, n_cc=2, retry_budget=3),
+    dict(protocol="deadlock_free", n_exec=4, backoff_mode="exp"),
+    dict(protocol="deadlock_free", n_exec=4, rounds_per_dispatch=2),
+    dict(protocol="deadlock_free", n_exec=4, release_path="dense"),
+    dict(protocol="orthrus", n_exec=4, n_cc=2, state_layout="legacy"),
+]
+
+
+@pytest.mark.parametrize("kw", UNPORTED, ids=range(len(UNPORTED)))
+def test_unported_paths_raise(kw):
+    wl, _ = _workloads(YCSB)
+    with pytest.raises(NotImplementedError, match=r"slice \d"):
+        engine.run_simulation(engine.EngineConfig(**kw, **SIM), wl,
+                              device="cpu")
+
+
+def test_one_plan_per_call():
+    wl, _ = _workloads(YCSB)
+    cfg = engine.EngineConfig(**DF, **SIM)
+    plan = engine.make_plan(cfg, wl)
+    with pytest.raises(NotImplementedError, match=r"slice \d"):
+        sweep.simulate_plans(cfg, [plan, plan], device="cpu")
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    wl, _ = _workloads(YCSB)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.run_simulation(engine.EngineConfig(**DF, **SIM), wl)
+
+
+def test_sat_mul_saturates_int32():
+    a = torch.tensor([0, 3, 1 << 20, 1 << 29], dtype=torch.int32)
+    b = torch.tensor([5, 7, 1 << 12, 0], dtype=torch.int32)
+    got = engine._sat_mul(a, b)
+    want = np.asarray(ref_engine._sat_mul(jnp.asarray(a.numpy()),
+                                          jnp.asarray(b.numpy())))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_chunk_boundaries_match_reference():
+    from repro.core import sweep as ref_sweep
+
+    for kw in (dict(max_rounds=1200, warmup_rounds=300, chunk_rounds=300),
+               dict(max_rounds=1000, warmup_rounds=250, chunk_rounds=200),
+               dict(max_rounds=999, warmup_rounds=0, chunk_rounds=400)):
+        cfg = engine.EngineConfig(**DF, **kw)
+        ref_cfg = ref_engine.EngineConfig(**DF, **kw)
+        assert list(sweep.chunk_boundaries(cfg)) == list(
+            ref_sweep.chunk_boundaries(ref_cfg))
+    assert sweep.ENGINE_VERSION == ref_sweep.ENGINE_VERSION
