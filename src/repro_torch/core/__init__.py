@@ -1,8 +1,9 @@
 """ORTHRUS core in PyTorch: workloads, planning, the round engine and
 the host loop, bit-exact with ``repro.core``.
 
-Ported so far: ``orthrus`` (P1 + P2) and ``deadlock_free`` (P2 alone),
-closed loop, through ``run_simulation``.
+Ported so far, closed loop, through ``run_simulation``: ``orthrus`` (P1
++ P2) and ``deadlock_free`` (P2 alone) on the lock-table engine, and the
+batch-planned ``dgcc``, ``quecc`` and ``scheduled``.
 """
 
 from repro_torch.core.cost_model import CostModel

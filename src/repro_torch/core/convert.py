@@ -2,9 +2,9 @@
 
 A plan dict (``plan_device``) and a round state (``_state0`` or a
 step's output) are dicts of arrays with the same keys and shapes in
-``repro.core.engine`` and here, with one exception: the port's
-per-record state arrays (``engine.RECORD_ARRAYS``) carry one extra row
-for dropped writes. These helpers add and strip it, so both packages
+``repro.core.engine`` and here, with one exception: the port's state
+arrays of ``engine.DROP_ROW_ARRAYS`` (per record, per batch unit, per
+txn) carry one extra last row for dropped writes. These helpers add and strip it, so both packages
 can compute from one plan and one state.
 """
 
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.engine import RECORD_ARRAYS
+from repro_torch.core.engine import DROP_ROW_ARRAYS
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -29,12 +29,13 @@ def plan_from_numpy(p: dict, device) -> dict[str, torch.Tensor]:
 
 
 def state_from_numpy(s: dict, device) -> dict[str, torch.Tensor]:
-    """A round state as numpy arrays (``R``-row per-record arrays) ->
-    the port's state on ``device`` (``R + 1`` rows, the last zero)."""
+    """A round state as numpy arrays in the reference's shapes -> the
+    port's state on ``device`` (one more row, zero, on each array of
+    ``DROP_ROW_ARRAYS``)."""
     out = {}
     for k, v in s.items():
         v = np.asarray(v)
-        if k in RECORD_ARRAYS:
+        if k in DROP_ROW_ARRAYS:
             v = np.concatenate([v, np.zeros_like(v[:1])], axis=0)
         out[k] = _tensor(v, device)
     return out
@@ -45,5 +46,5 @@ def state_to_numpy(s: dict) -> dict[str, np.ndarray]:
     out = {}
     for k, v in s.items():
         a = v.detach().cpu().numpy()
-        out[k] = a[:-1] if k in RECORD_ARRAYS else a
+        out[k] = a[:-1] if k in DROP_ROW_ARRAYS else a
     return out

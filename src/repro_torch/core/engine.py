@@ -6,19 +6,27 @@ cycles); in each round every lane interacts with the lock table at most
 once. See the reference module for the protocol families and the cost
 model; this module keeps its names, row constants and stage numbering.
 
-Ported so far (``make_step``): ``orthrus`` (CC lanes own key
-partitions, exec lanes multiplex a window of transactions, P1 + P2) and
-``deadlock_free`` (canonical-order acquisition, P2 alone), closed loop,
-``release_path="csr"``, one round per dispatch, with event leaping on or
-off. Everything else raises ``NotImplementedError`` naming the slice of
-the port that brings it.
+Ported so far, closed loop, ``release_path="csr"``, one round per
+dispatch, with event leaping on or off:
+
+* ``make_step``: ``orthrus`` (CC lanes own key partitions, exec lanes
+  multiplex a window of transactions, P1 + P2) and ``deadlock_free``
+  (canonical-order acquisition, P2 alone);
+* ``make_batch_step``: the batch-planned ``dgcc``, ``quecc`` and
+  ``scheduled``, with or without ``fragment_exec`` and
+  ``inter_batch_pipeline``, and the planner-lane model
+  (``n_planner_lanes > 0``).
+
+Everything else raises ``NotImplementedError`` naming the slice of the
+port that brings it.
 
 State is a dict of int32 / bool tensors on one device, as in the
-reference, with one difference: the per-record arrays (``wh``, ``rc``,
-``heat``, ``line``, ``agg_sum``) carry one extra row at index ``R``.
-The reference scatters with ``mode="drop"`` at index ``R``; here those
-writes land in the extra row, which nothing reads.
-``repro_torch.core.convert`` adds and strips it.
+reference, with one difference: the arrays of ``DROP_ROW_ARRAYS`` (the
+per-record ``wh``, ``rc``, ``heat``, ``line``, ``agg_sum`` and the batch
+engine's per-unit ``done`` and per-txn ``txn_left``) carry one extra
+last row. The reference scatters into them with ``mode="drop"`` at the
+index one past the end; here those writes land in the extra row, which
+nothing reads. ``repro_torch.core.convert`` adds and strips it.
 """
 
 from __future__ import annotations
@@ -103,8 +111,9 @@ BATCH_SLOT_COLS = (
     "ftxn", "arrive",
 )
 
-# Per-record state arrays: [R + 1, ...], row R is the dropped-write row.
-RECORD_ARRAYS = ("wh", "rc", "heat", "line", "agg_sum")
+# State arrays with one extra last row for the reference's dropped
+# writes: per record [R + 1, ...], per unit done [NU + 1], txn_left [N + 1].
+DROP_ROW_ARRAYS = ("wh", "rc", "heat", "line", "agg_sum", "done", "txn_left")
 
 # Sharer-heat epoch length (rounds) for the coherence model.
 EPOCH_BITS = 12
@@ -136,9 +145,8 @@ PROTOCOLS = (
 )
 
 # Protocols this port runs; the rest name the slice that brings them.
-PORTED_PROTOCOLS = ("deadlock_free", "orthrus")
+PORTED_PROTOCOLS = ("deadlock_free", "orthrus", "dgcc", "quecc", "scheduled")
 _SLICE_OF_PROTOCOL = {
-    "dgcc": 2, "quecc": 2, "scheduled": 2,
     "twopl_waitdie": 3, "twopl_waitfor": 3, "twopl_dreadlocks": 3,
     "partitioned_store": 3,
 }
@@ -405,8 +413,21 @@ class SimResult:
 def plan_meta(cfg: EngineConfig, plan: planner_lib.Plan) -> PlanMeta:
     """Shape signature of a plan."""
     if cfg.is_batch_planned:
-        raise NotImplementedError(
-            "batch-planned protocols are not ported yet (slice 2)"
+        sched = plan.sched
+        assert sched is not None, "batch protocols require a planned schedule"
+        frag_kw = {}
+        if cfg.fragment_exec:
+            frag_kw = dict(
+                n_frags=sched.n_frags,
+                frag_pred_width=sched.frag_pred_pad.shape[1],
+            )
+        return PlanMeta(
+            n_txns=sched.n_txns,
+            max_keys=plan.keys.shape[1],
+            num_records=plan.num_records,
+            pred_width=sched.pred_pad.shape[1],
+            num_batches=sched.num_batches,
+            **frag_kw,
         )
     return PlanMeta(
         n_txns=plan.keys.shape[0],
@@ -453,15 +474,14 @@ def _policy_scalars(cfg: EngineConfig) -> dict:
 
 
 def plan_device(cfg: EngineConfig, plan: planner_lib.Plan) -> dict:
-    """The plan arrays the step reads, as numpy: the lock-table
-    protocols' entries of ``repro.core.engine.plan_device``, open arrival
-    and policy scalars included. ``convert.plan_from_numpy`` moves them
-    to a device.
+    """The plan arrays the step reads, as numpy: the entries of
+    ``repro.core.engine.plan_device`` (for the lock-table engine, open
+    arrival and policy scalars included; the batch engine's open-arrival
+    and policy keys come with the steps that read them, in slice 3).
+    ``convert.plan_from_numpy`` moves them to a device.
     """
     if cfg.is_batch_planned:
-        raise NotImplementedError(
-            "batch-planned protocols are not ported yet (slice 2)"
-        )
+        return _batch_plan_device(cfg, plan)
     keys = np.asarray(plan.keys, np.int32)
     modes = np.asarray(plan.modes, np.int32)
     part = np.asarray(plan.part, np.int32)
@@ -513,6 +533,48 @@ def plan_device(cfg: EngineConfig, plan: planner_lib.Plan) -> dict:
         p.update(_policy_scalars(cfg))
     elif cfg.backoff_mode == "exp" or cfg.retry_budget > 0:
         p.update(_policy_scalars(cfg))
+    p["qgrid_iv"] = np.asarray(qgrid_interval(cfg), np.int32)
+    return p
+
+
+def _batch_plan_device(cfg: EngineConfig, plan: planner_lib.Plan) -> dict:
+    """The batch-planned branch of :func:`plan_device`."""
+    sched = plan.sched
+    npred = np.asarray(sched.npred, np.int32)
+    exec_ops = np.asarray(plan.exec_ops, np.int32)
+    p = dict(
+        exec_ops=exec_ops,
+        npred=npred,
+        txn_ne=np.stack([npred, exec_ops], axis=1),
+        pred_pad=np.asarray(sched.pred_pad, np.int32),
+        batch_of=np.asarray(sched.batch_of, np.int32),
+        batch_start=np.asarray(sched.batch_start, np.int32),
+        batch_size=np.asarray(sched.batch_size, np.int32),
+        plan_rounds=_batch_plan_rounds(cfg, plan),
+    )
+    if cfg.fragment_exec:
+        # per-fragment executable ops: the fragment's own key-ops, plus
+        # the txn's non-keyed ops on the fragment holding its first key
+        frag_txn = np.asarray(sched.frag_txn, np.int64)
+        extra = (exec_ops - np.asarray(plan.nkeys, np.int32))[frag_txn]
+        frag_exec = np.asarray(sched.frag_nkeys, np.int32) + np.where(
+            sched.frag_first, np.maximum(extra, 0), 0
+        ).astype(np.int32)
+        frag_npred = np.asarray(sched.frag_npred, np.int32)
+        p.update(
+            frag_ne=np.stack([frag_npred, frag_exec], axis=1),
+            frag_pred_pad=np.asarray(sched.frag_pred_pad, np.int32),
+            frag_txn=frag_txn.astype(np.int32),
+            frag_batch=np.asarray(sched.batch_of[frag_txn], np.int32),
+            txn_nfrags=np.asarray(sched.txn_nfrags, np.int32),
+            batch_fstart=np.asarray(sched.batch_fstart, np.int32),
+            batch_fsize=np.asarray(sched.batch_fsize, np.int32),
+            lvl0_fcount=np.asarray(sched.lvl0_fcount, np.int32),
+        )
+    if cfg.n_planner_lanes > 0:
+        p["plan_work"] = _planner_work_rounds(cfg, plan)
+    if cfg.n_planner_lanes > 0 or cfg.epoch_interval_rounds > 0:
+        p["epoch_interval"] = np.asarray(cfg.epoch_interval_rounds, np.int32)
     p["qgrid_iv"] = np.asarray(qgrid_interval(cfg), np.int32)
     return p
 
@@ -1191,6 +1253,551 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
             [tid, widx, lane_ctr, ts, phase, committing.to(I32),
              busy_until, busy_kind, kptr, attempt, ccptr, msg_arrive,
              msg_stage, release_at, waited.to(I32), dl_debt, arrive],
+            dim=0,
+        )
+        return s
+
+    return step
+
+
+def _batch_plan_rounds(cfg: EngineConfig, plan: planner_lib.Plan):
+    """Per-batch planning latency in rounds (int32[NB]): planner lanes
+    place every key-op into the dependency graph / queues and run OLLP
+    reconnaissance; the scheduled family charges its clusterer instead.
+    Divided by the pipelined planner-lane count ``n_cc``."""
+    cm = cfg.cost
+    sched = plan.sched
+    n_ollp = np.bincount(
+        sched.batch_of, weights=plan.ollp.astype(np.int64),
+        minlength=sched.num_batches,
+    )
+    if cfg.protocol == "scheduled":
+        work = cm.scheduler_batch_cycles(
+            n_txns=sched.batch_size.astype(np.int64),
+            n_ops=sched.plan_ops.astype(np.int64),
+            n_edges=sched.scan_edges.astype(np.int64),
+            n_ollp=n_ollp.astype(np.int64),
+        )
+    else:
+        work = (
+            sched.plan_ops.astype(np.int64) * cm.batch_plan_cycles_per_op
+            + n_ollp.astype(np.int64) * cm.recon_cycles
+        )
+    plan_cycles = work // max(cfg.n_cc, 1)
+    return np.asarray(cm.rounds(plan_cycles), np.int32)  # [NB]
+
+
+def _planner_work_rounds(cfg: EngineConfig, plan: planner_lib.Plan):
+    """Per-batch planner-lane work in rounds (int32[NB]) under the
+    throughput model (``n_planner_lanes > 0``): one lane plans a whole
+    batch, and the work scales with the batch's conflict-graph size. Not
+    divided by a lane count: planner parallelism is across batches."""
+    cm = cfg.cost
+    sched = plan.sched
+    n_ollp = np.bincount(
+        sched.batch_of, weights=plan.ollp.astype(np.int64),
+        minlength=sched.num_batches,
+    ).astype(np.int64)
+    if cfg.protocol == "scheduled":
+        cycles = cm.scheduler_batch_cycles(
+            n_txns=sched.batch_size.astype(np.int64),
+            n_ops=sched.plan_ops.astype(np.int64),
+            n_edges=sched.scan_edges.astype(np.int64),
+            n_ollp=n_ollp,
+        )
+        return np.asarray(cm.rounds(cycles), np.int32)
+    if cfg.fragment_exec:
+        n_edges = sched.frag_edges_per_batch()
+        n_frags = sched.batch_fsize.astype(np.int64)
+    else:
+        n_edges = sched.edges_per_batch()
+        n_frags = np.zeros(sched.num_batches, np.int64)
+    cycles = cm.planner_batch_cycles(
+        n_txns=sched.batch_size.astype(np.int64),
+        n_ops=sched.plan_ops.astype(np.int64),
+        n_edges=n_edges,
+        n_frags=n_frags,
+        n_ollp=n_ollp,
+    )
+    return np.asarray(cm.rounds(cycles), np.int32)
+
+
+def _batch_state0(cfg: EngineConfig, plan: planner_lib.Plan, T: int,
+                  device: torch.device | str = "cuda") -> dict:
+    """Initial state of the batch engine, with the extra dropped-write
+    row on ``done`` and ``txn_left`` (see the module docstring)."""
+    check_ported(cfg)
+    dev = torch.device(device)
+    sched = plan.sched
+    N = sched.n_txns
+
+    def scalar(v):
+        return torch.tensor(int(v), dtype=I32, device=dev)
+
+    def z(*shape, dtype=I32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    slots = z(BATCH_SLOT_F, T)
+    slots[BC_TID] = -1
+    s = dict(
+        r=z(),
+        next_txn=z(),
+        cur_batch=z(),
+        bpos=z(),
+        batch_left=scalar(sched.batch_size[0]),
+        plan_fin=scalar(_batch_plan_rounds(cfg, plan)[0]),
+        done=z(N + 1, dtype=torch.bool),
+        slots=slots,
+        commits=z(),
+        aborts_dl=z(),
+        aborts_ollp=z(),
+        wasted=z(),
+        cat=z(NCAT),
+        steps=z(),
+        lat_hist=z(LAT_BUCKETS),
+        q_depth=z(QDEPTH_SAMPLES),
+        q_inflight=z(QDEPTH_SAMPLES),
+    )
+    if cfg.fragment_exec:
+        # done flags per fragment; the commit barrier counts down each
+        # txn's outstanding fragments
+        s["done"] = z(sched.n_frags + 1, dtype=torch.bool)
+        s["txn_left"] = z(N + 1)
+        s["txn_left"][:N] = torch.as_tensor(sched.txn_nfrags, dtype=I32)
+    if cfg.inter_batch_pipeline and sched.num_batches > 1:
+        # cursor into the next batch's level-0 fragment prefix, and the
+        # traffic that ran ahead of the batch barrier
+        s["pbpos"] = scalar(sched.batch_fstart[1])
+        s["pipe_com"] = z()
+        s["pipe_adm"] = z()
+        s["pipe_commits"] = z()
+    if cfg.n_planner_lanes > 0 or cfg.epoch_interval_rounds > 0:
+        s["epoch_ctr"] = z()
+    if cfg.n_planner_lanes > 0:
+        # batch 0 arrives at round 0 on a free lane 0, so its plan
+        # completes after its own work span
+        ready0 = int(_planner_work_rounds(cfg, plan)[0])
+        s["plan_fin"] = scalar(ready0)
+        s["lane_free"] = z(cfg.n_planner_lanes)
+        s["lane_free"][0] = ready0
+        s["plan_busy"] = scalar(ready0)
+        s["plan_qdelay"] = z()
+        s["lane_start"] = z(cfg.n_planner_lanes)
+        s["pb_span"] = z(2)
+        s["plan_busy_int"] = z()
+    return s
+
+
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor, as a 0-d tensor. Indexing with a
+    0-d tensor itself reads the index on the host (a device sync)."""
+    return x.index_select(0, i.reshape(1)).reshape(())
+
+
+def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
+                    device: torch.device | str = "cuda"):
+    """Single-round transition of the batch-planned protocols (``dgcc``,
+    ``quecc``, ``scheduled``): lock-free execution over a precomputed
+    dependency schedule, with the stage numbering of the reference.
+
+    Returns ``step(p, s, r_end)`` with the contract of :func:`make_step`
+    (no stamp rebase: this state has no lock table). The step updates
+    ``done`` and ``txn_left`` in place. The schedulable unit is a whole
+    transaction, or a per-(txn, lane) fragment under
+    ``cfg.fragment_exec`` (``done`` is then per fragment and a txn
+    commits when its last fragment finishes); with
+    ``cfg.inter_batch_pipeline`` the next batch's level-0 fragments are
+    admitted while the current batch drains.
+
+    Stage 4, "all planned predecessors committed", is the dep_wavefront
+    scan: the CUDA kernel (its plain version for CPU tensors) over the
+    slot rows' edges when ``use_kernel(cfg.kernel_impl, device)``, else
+    the dense per-slot gather.
+    """
+    check_ported(cfg)
+    dev = torch.device(device)
+    cm = cfg.cost
+    T = cfg.n_slots
+    N = meta.n_txns
+    W = cfg.window
+    NB = meta.num_batches
+    frag = cfg.fragment_exec
+    NU = meta.n_frags if frag else N
+    # one batch cannot pipeline into itself (nothing to overlap)
+    pipe = cfg.inter_batch_pipeline and NB > 1
+    L = cfg.n_planner_lanes
+    planner_model = L > 0
+
+    slot_ids = torch.arange(T, dtype=I32, device=dev)
+    lane_idx = (slot_ids // W).long()
+    lane_ids = torch.arange(L, dtype=I32, device=dev)
+    lat_pow2 = torch.tensor([1 << k for k in range(LAT_BUCKETS - 1)],
+                            dtype=I32, device=dev)
+    qgrid_pos = torch.arange(QDEPTH_SAMPLES, dtype=I32, device=dev) + 1
+    lane_ones = torch.ones(cfg.n_exec, dtype=I32, device=dev)
+    neg_ones = torch.full((T,), -1, dtype=I32, device=dev)
+    shared_index = not cfg.split_index
+    exec_cycles_per_op = cm.exec_op_cycles + (
+        cm.shared_index_penalty_cycles if shared_index else 0
+    )
+    P = meta.frag_pred_width if frag else meta.pred_width
+    if use_kernel(cfg.kernel_impl, dev) and P > 0:
+        from repro_torch.kernels.dep_wavefront.ops import dep_wavefront_rows
+    else:
+        dep_wavefront_rows = None
+
+    def rounds_of(cyc):
+        return (cyc + cm.cycles_per_round - 1) // cm.cycles_per_round
+
+    exec_rounds_one = rounds_of(exec_cycles_per_op)
+
+    def lane_any(x):
+        """[n_exec]: any slot of the lane (lanes are W consecutive slots)."""
+        return x.view(cfg.n_exec, W).any(dim=1)
+
+    def step(p, s, r_end):
+        s = dict(s)
+        r = s["r"]
+        if frag:
+            ne_all = p["frag_ne"]  # [F, 2] = (npred, exec_ops)
+            pred_pad = p["frag_pred_pad"]  # [F, PF]
+            unit_batch = p["frag_batch"]
+            ustart = p["batch_fstart"]
+            usize = p["batch_fsize"]
+        else:
+            ne_all = p["txn_ne"]  # [N, 2] = (npred, exec_ops)
+            pred_pad = p["pred_pad"]  # [N, P]
+            unit_batch = p["batch_of"]
+            ustart = p["batch_start"]
+            usize = p["batch_size"]
+        batch_of = p["batch_of"]  # [N] txn-level (commit barrier)
+        bsize = p["batch_size"]
+        done = s["done"]  # [NU + 1], updated in place
+        if planner_model:
+            interval = p["epoch_interval"]
+
+        sl = s["slots"]
+        tid = sl[BC_TID]
+        widx = sl[BC_WIDX]
+        ts = sl[BC_TS]
+        phase = sl[BC_PHASE]
+        busy_until = sl[BC_BUSY_UNTIL]
+        busy_kind = sl[BC_BUSY_KIND]
+        msg_arrive = sl[BC_MSG_ARRIVE]
+        ftxn = sl[BC_FTXN]
+        arrive = sl[BC_ARRIVE]
+
+        # -------------------------------------------- 1. batch rollover
+        # When every transaction of the current batch has committed, open
+        # the next one; its plan is ready one planning span after the
+        # last one (pipelined planners), or, under the planner-lane
+        # model, after lane g % L has planned it end to end.
+        adv = s["batch_left"] == 0
+        new_b = torch.where(adv, (s["cur_batch"] + 1) % NB, s["cur_batch"])
+        # stale flags (the workload wraps modulo NB) are cleared one
+        # batch ahead of admission
+        clr_b = (new_b + 1) % NB if pipe else new_b
+        done[:NU].masked_fill_(adv & (unit_batch == clr_b), False)
+        if frag:
+            tl = s["txn_left"]  # [N + 1], updated in place
+            tl[:N] = torch.where(adv & (batch_of == clr_b), p["txn_nfrags"],
+                                 tl[:N])
+        if pipe:
+            # admission continues where the pipelined cursor stopped;
+            # commits that ran ahead of the barrier are already paid
+            s["bpos"] = torch.where(adv, s["pbpos"], s["bpos"])
+            s["pbpos"] = torch.where(adv, _at(ustart, clr_b), s["pbpos"])
+            s["batch_left"] = torch.where(
+                adv, _at(bsize, new_b) - s["pipe_com"], s["batch_left"]
+            )
+            s["pipe_com"] = torch.where(adv, 0, s["pipe_com"])
+        else:
+            s["bpos"] = torch.where(adv, _at(ustart, new_b), s["bpos"])
+            s["batch_left"] = torch.where(adv, _at(bsize, new_b),
+                                          s["batch_left"])
+        if planner_model:
+            g_new = s["epoch_ctr"] + 1  # the new batch's global index
+            arrive_new = g_new * interval
+            lane = g_new % L
+            at_lane = adv & (lane_ids == lane)
+            lane_free_prev = _at(s["lane_free"], lane)
+            work_new = _at(p["plan_work"], new_b)
+            start_new = torch.maximum(arrive_new, lane_free_prev)
+            ready = start_new + work_new
+            s["plan_qdelay"] = s["plan_qdelay"] + torch.where(
+                adv, torch.clamp(lane_free_prev - arrive_new, min=0), 0
+            )
+            s["plan_busy"] = s["plan_busy"] + torch.where(adv, work_new, 0)
+            # round-granular lane-busy integral: credit the elapsed part
+            # of the new span now, its future part as rounds elapse
+            # (below); park the replaced span's remainder in pb_span
+            elapsed_part = torch.clamp(
+                torch.minimum(ready, r) - start_new, min=0
+            )
+            s["plan_busy_int"] = s["plan_busy_int"] + torch.where(
+                adv, elapsed_part, 0
+            )
+            old_start = _at(s["lane_start"], lane)
+            keep_old = adv & (lane_free_prev > r)
+            s["pb_span"] = torch.where(
+                keep_old,
+                torch.stack([torch.maximum(old_start, r), lane_free_prev]),
+                s["pb_span"],
+            )
+            s["lane_start"] = torch.where(at_lane, start_new,
+                                          s["lane_start"])
+            s["lane_free"] = torch.where(at_lane, ready, s["lane_free"])
+            new_plan_fin = ready
+        else:
+            new_plan_fin = s["plan_fin"] + _at(p["plan_rounds"], new_b)
+        s["plan_fin"] = torch.where(adv, new_plan_fin, s["plan_fin"])
+        if planner_model:
+            s["epoch_ctr"] = s["epoch_ctr"] + adv.to(I32)
+        s["cur_batch"] = new_b
+
+        def next_plan_fin(nb):
+            # modeled plan-ready round of the next batch: what the
+            # pipelined level-0 prefix waits for
+            if planner_model:
+                g_nxt = s["epoch_ctr"] + 1
+                lane_free = _at(s["lane_free"], g_nxt % L)
+                return torch.maximum(g_nxt * interval, lane_free) + _at(
+                    p["plan_work"], nb)
+            return s["plan_fin"] + _at(p["plan_rounds"], nb)
+
+        # -------------------------------------------- 2. admission
+        # Empty slots pull the next positions of the current batch, in
+        # the planner's serial order, once the batch's plan is ready.
+        empty = phase == EMPTY
+        rank = torch.cumsum(empty, 0, dtype=I32) - 1
+        pos = s["bpos"] + rank
+        bend = _at(ustart, new_b) + _at(usize, new_b)
+        if pipe:
+            # ranks beyond the current batch's remaining units spill into
+            # the next batch's level-0 fragment prefix
+            cur_avail = torch.clamp(bend - s["bpos"], min=0)
+            adm_cur = empty & (rank < cur_avail) & (r >= s["plan_fin"])
+            nb = (new_b + 1) % NB
+            nlvl_end = _at(ustart, nb) + _at(p["lvl0_fcount"], nb)
+            plan_fin_next = next_plan_fin(nb)
+            ppos = s["pbpos"] + (rank - cur_avail)
+            adm_pipe = (
+                empty
+                & (rank >= cur_avail)
+                & (ppos < nlvl_end)
+                & (r >= plan_fin_next)
+            )
+            adm = adm_cur | adm_pipe
+            upos = torch.where(adm_pipe, ppos, pos)
+            s["bpos"] = s["bpos"] + adm_cur.sum(dtype=I32)
+            n_pipe = adm_pipe.sum(dtype=I32)
+            s["pbpos"] = s["pbpos"] + n_pipe
+            s["pipe_adm"] = s["pipe_adm"] + n_pipe
+            n_adm = adm.sum(dtype=I32)
+        else:
+            adm = empty & (pos < bend) & (r >= s["plan_fin"])
+            upos = pos
+            n_adm = adm.sum(dtype=I32)
+            s["bpos"] = s["bpos"] + n_adm
+        widx = torch.where(adm, upos, widx)
+        new_tid = s["next_txn"] + rank
+        tid = torch.where(adm, new_tid, tid)
+        ts = torch.where(adm, new_tid, ts)
+        arrive = torch.where(adm, r, arrive)
+        s["next_txn"] = s["next_txn"] + n_adm
+        # the reference's gathers clamp; widx is in range by construction
+        wsafe = torch.clamp(widx, 0, NU - 1).long()
+        if frag:
+            ftxn = torch.where(adm, p["frag_txn"][wsafe], ftxn)
+        else:
+            ftxn = torch.where(adm, widx, ftxn)
+        # one [T, 2] gather of (npred, exec_ops); the predecessor rows
+        # serve both the wavefront check and the event leap
+        ne = ne_all[wsafe]
+        npred_t = ne[:, 0]
+        exec_t = ne[:, 1]
+        preds = pred_pad[wsafe]  # [T, P]
+        preds0 = torch.clamp(preds, min=0).long()
+        init_busy = rounds_of(
+            cm.txn_fixed_cycles + npred_t * cm.dep_check_cycles
+        )
+        phase = torch.where(adm, INIT, phase)
+        busy_until = torch.where(adm, r + init_busy, busy_until)
+        busy_kind = torch.where(adm, CAT_LOCK, busy_kind)
+
+        # -------------------------------------------- 3. INIT -> MSG
+        # The exec lane fetches its next planned entry from the scheduler
+        # queue: one SPSC hop.
+        free = busy_until <= r
+        start = (phase == INIT) & free & (tid >= 0)
+        phase = torch.where(start, MSG, phase)
+        msg_arrive = torch.where(start, r + cm.msg_hop_rounds, msg_arrive)
+        got = (phase == MSG) & (msg_arrive <= r)
+        phase = torch.where(got, READY, phase)
+
+        # -------------------------------------------- 4. wavefront check
+        if dep_wavefront_rows is not None:
+            # the scan over the slot rows' edges, grouped by row
+            dep_ok = dep_wavefront_rows(widx, preds, done[preds0])
+        else:
+            dep_ok = ((preds < 0) | done[preds0]).all(dim=1)
+        ready = (phase == READY) & dep_ok
+
+        # -------------------------------------------- 5. lane scheduling
+        busy = busy_until > r
+        lane_busy = lane_any((phase == EXEC) & busy)
+        ready_ts = torch.where(ready, ts, _IMAX)
+        lane_min = ready_ts.view(cfg.n_exec, W).amin(dim=1)
+        startx = (
+            ready
+            & (ready_ts == lane_min[lane_idx])
+            & ~lane_busy[lane_idx]
+        )
+        phase = torch.where(startx, EXEC, phase)
+        busy_until = torch.where(
+            startx, r + exec_t * exec_rounds_one, busy_until
+        )
+        busy_kind = torch.where(startx, CAT_EXEC, busy_kind)
+
+        # -------------------------------------------- 6. commit
+        # No locks and no abort path. In fragment mode a finished
+        # fragment marks itself done and decrements its txn's count; the
+        # txn commits (once) when the count hits zero.
+        free = busy_until <= r
+        fin = (phase == EXEC) & free
+        done[torch.where(fin, widx, NU).long()] = True
+        if frag:
+            tl.index_add_(0, torch.where(fin, ftxn, N), neg_ones)
+            tl_t = tl[torch.where(fin, ftxn, 0).long()]
+            com_slot = fin & (tl_t == 0)
+            # fragments of one txn finishing in the same round on
+            # different slots: only the lowest such slot commits it
+            same = (ftxn[None, :] == ftxn[:, None]) & com_slot[None, :]
+            com_first = slot_ids == torch.where(
+                same, slot_ids[None, :], T).amin(dim=1)
+            com = com_slot & com_first
+            ncom = com.sum(dtype=I32)
+            if pipe:
+                com_b = batch_of[torch.where(com, ftxn, 0).long()]
+                ncom_ahead = (com & (com_b != new_b)).sum(dtype=I32)
+                s["pipe_com"] = s["pipe_com"] + ncom_ahead
+                s["pipe_commits"] = s["pipe_commits"] + ncom_ahead
+                s["batch_left"] = s["batch_left"] - (ncom - ncom_ahead)
+            else:
+                s["batch_left"] = s["batch_left"] - ncom
+        else:
+            com = fin
+            ncom = fin.sum(dtype=I32)
+            s["batch_left"] = s["batch_left"] - ncom
+        s["commits"] = s["commits"] + ncom
+        # commit-latency histogram (bucket = powers of two <= latency)
+        lat = r - arrive
+        lat_b = (lat[:, None] >= lat_pow2[None, :]).sum(dim=1, dtype=I32)
+        s["lat_hist"] = s["lat_hist"].index_add(
+            0, torch.where(com, lat_b, 0), com.to(I32)
+        )
+        phase = torch.where(fin, EMPTY, phase)
+        tid = torch.where(fin, -1, tid)
+
+        # -------------------------------------------- 7. lane accounting
+        busy2 = busy_until > r
+        slot_cat = torch.where(
+            busy2,
+            busy_kind,
+            torch.where(
+                phase == MSG,
+                CAT_MSG,
+                torch.where(phase == READY, CAT_WAIT, CAT_IDLE),
+            ),
+        )
+        lane_cat = torch.where(
+            lane_any(busy2 & (slot_cat == CAT_EXEC)),
+            CAT_EXEC,
+            torch.where(
+                lane_any(slot_cat == CAT_WAIT),
+                CAT_WAIT,
+                torch.where(lane_any(slot_cat == CAT_MSG), CAT_MSG, CAT_IDLE),
+            ),
+        )
+        cat_counts = torch.zeros(NCAT, dtype=I32, device=dev).index_add_(
+            0, lane_cat, lane_ones
+        )
+
+        # -------------------------------------------- 8. event leap
+        # Timers: busy_until, msg_arrive and the scalar admission gate
+        # (plan_fin / batch rollover). A dep-clear READY slot starts the
+        # round its lane goes idle.
+        if cfg.event_leap:
+            busy3 = busy_until > r
+            cand = torch.where(busy3, busy_until, _IMAX)
+            cand = torch.minimum(cand, torch.where(
+                (phase == MSG) & (msg_arrive > r), msg_arrive, _IMAX))
+            act_next = (
+                (~busy3 & (phase == INIT))
+                | ((phase == MSG) & (msg_arrive <= r))
+            )
+            # same pred rows as stage 4; `done` moved, so re-gather
+            dep_ok2 = ((preds < 0) | done[preds0]).all(dim=1)
+            lane_exec_busy = lane_any((phase == EXEC) & busy3)
+            act_next = act_next | (
+                (phase == READY) & dep_ok2 & ~lane_exec_busy[lane_idx]
+            )
+            cand = torch.where(act_next, r + 1, cand)
+            # admission is a scalar event: the next batch opens the round
+            # after batch_left hits zero; within a batch, empty slots
+            # admit once plan_fin has passed and positions remain
+            adm_evt = torch.where(
+                s["batch_left"] == 0,
+                r + 1,
+                torch.where(
+                    s["bpos"] < bend,
+                    torch.maximum(s["plan_fin"], r + 1),
+                    _IMAX,
+                ),
+            )
+            if pipe:
+                # pipelined admission wakes when the next batch's plan
+                # lands, while level-0 fragment positions remain
+                pipe_evt = torch.where(
+                    s["pbpos"] < nlvl_end,
+                    torch.maximum(plan_fin_next, r + 1),
+                    _IMAX,
+                )
+                adm_evt = torch.minimum(adm_evt, pipe_evt)
+            adm_evt = torch.where((phase == EMPTY).any(), adm_evt, _IMAX)
+            nxt = torch.minimum(
+                torch.maximum(torch.minimum(cand.min(), adm_evt), r + 1),
+                r_end,
+            )
+        else:
+            nxt = r + 1
+        leap = nxt - r
+        s["cat"] = s["cat"] + cat_counts * leap
+        s["steps"] = s["steps"] + 1
+        s["r"] = nxt
+        if planner_model:
+            # planner-busy rounds: overlap of each lane's live span (and
+            # the carried span) with the elapsed window [r, nxt)
+            acc = torch.clamp(
+                torch.minimum(s["lane_free"], nxt)
+                - torch.maximum(s["lane_start"], r),
+                min=0,
+            ).sum(dtype=I32)
+            acc = acc + torch.clamp(
+                torch.minimum(s["pb_span"][1], nxt)
+                - torch.maximum(s["pb_span"][0], r),
+                min=0,
+            )
+            s["plan_busy_int"] = s["plan_busy_int"] + acc
+        # queue samples at every grid point in (r, nxt]
+        qgrid = qgrid_pos * p["qgrid_iv"]
+        qm = (qgrid > r) & (qgrid <= nxt)
+        s["q_inflight"] = torch.where(
+            qm, (tid >= 0).sum(dtype=I32), s["q_inflight"]
+        )
+        s["slots"] = torch.stack(
+            [tid, widx, ts, phase, busy_until, busy_kind, msg_arrive, ftxn,
+             arrive],
             dim=0,
         )
         return s

@@ -2,8 +2,9 @@
 snapshot and the ``target_commits`` stop.
 
 The port of the serial path of ``repro.core.sweep``: the chunk runner
-(``run_chunk``) is a Python loop that, while ``r < r_end``, rebases the
-enqueue stamps and runs one step; counters are read at every chunk
+(``run_chunk``) is a Python loop that, while ``r < r_end``, runs one step
+(after an enqueue-stamp rebase, for the lock-table engine); counters
+are read at every chunk
 boundary (``chunk_boundaries``), warmup counters are subtracted, and the
 run stops at the first boundary where the measured commits reach
 ``target_commits``. The results equal the reference driver's in every
@@ -26,6 +27,17 @@ from repro_torch.core.engine import NCAT, EngineConfig, SimResult
 ENGINE_VERSION = "4-mega-dispatch"
 
 _SCALARS = ("commits", "aborts_dl", "aborts_ollp", "wasted", "next_txn", "steps")
+# Present only in some states; each is cumulative and reported
+# warmup-subtracted in ``SimResult.raw`` (see the reference's
+# ``_OPT_SCALARS``): pipelined admission (pipe_*), the planner-lane
+# model (plan_busy, plan_qdelay, epoch_ctr, plan_busy_int) and the
+# overload layer (pol_*).
+_OPT_SCALARS = (
+    "pipe_adm", "pipe_commits", "plan_busy", "plan_qdelay", "epoch_ctr",
+    "plan_busy_int",
+    "pol_rejected", "pol_shed", "pol_timedout", "pol_tb_adm",
+    "pol_sacrificed", "pol_backoff_rounds",
+)
 _METRIC_ARRAYS = ("lat_hist", "q_depth", "q_inflight")
 _BREAKDOWN_NAMES = ("idle", "exec", "lock", "wait", "deadlock", "msg")
 
@@ -44,18 +56,23 @@ def chunk_boundaries(cfg: EngineConfig):
         r = nxt
 
 
-def run_chunk(step, p: dict, state: dict, r_end: int) -> dict:
-    """Advance ``state`` to round ``r_end``: one stamp rebase and one step
-    per iteration, while ``r < r_end`` (the host reads ``r`` each step)."""
+def run_chunk(step, p: dict, state: dict, r_end: int,
+              rebase: bool = True) -> dict:
+    """Advance ``state`` to round ``r_end``: one step per iteration, each
+    after a stamp rebase when ``rebase`` (the lock-table engine), while
+    ``r < r_end`` (the host reads ``r`` each step)."""
     r_end_t = torch.tensor(r_end, dtype=torch.int32, device=state["r"].device)
     while int(state["r"]) < r_end:
-        state = step(p, engine_lib.rebase_enq(state), r_end_t)
+        if rebase:
+            state = engine_lib.rebase_enq(state)
+        state = step(p, state, r_end_t)
     return state
 
 
 def read_counters(state: dict) -> dict[str, np.ndarray]:
     """Device -> host copy of the small counters."""
-    keys = _SCALARS + ("cat",) + _METRIC_ARRAYS
+    keys = _SCALARS + ("cat",) + _METRIC_ARRAYS + tuple(
+        k for k in _OPT_SCALARS if k in state)
     return {k: state[k].cpu().numpy().astype(np.int64) for k in keys}
 
 
@@ -67,9 +84,13 @@ def _zeros_like_counters() -> dict[str, np.ndarray]:
 
 def _result(cfg, snap, wsnap, ri, wri, wall) -> SimResult:
     """Assemble the :class:`SimResult` of one cell (the reference's
-    ``_GroupRun.finish`` for a closed-loop lock-table cell)."""
+    ``_GroupRun.finish`` for a closed-loop cell)."""
     cm = cfg.cost
-    commits = int(snap["commits"]) - int(wsnap["commits"])
+
+    def delta(k):
+        return int(snap.get(k, 0)) - int(wsnap.get(k, 0))
+
+    commits = delta("commits")
     meas_rounds = ri - wri
     sim_seconds = meas_rounds * cm.round_seconds
     cat = snap["cat"] - wsnap["cat"]
@@ -78,7 +99,9 @@ def _result(cfg, snap, wsnap, ri, wri, wall) -> SimResult:
         nm: float(cat[k]) / total_lane_rounds
         for k, nm in enumerate(_BREAKDOWN_NAMES)
     }
-    admitted = int(snap["next_txn"]) - int(wsnap["next_txn"])
+    rejected = delta("pol_rejected")
+    shed = delta("pol_shed")
+    admitted = delta("next_txn") - rejected - shed
     hist = snap["lat_hist"] - np.asarray(wsnap.get("lat_hist", 0), np.int64)
     qgrid = (
         np.arange(metrics_lib.QDEPTH_SAMPLES, dtype=np.int64) + 1
@@ -90,17 +113,21 @@ def _result(cfg, snap, wsnap, ri, wri, wall) -> SimResult:
         q_grid=qgrid,
         breakdown=breakdown,
         exec_lane_rounds=total_lane_rounds,
-        plan_busy_rounds=0,
+        plan_busy_rounds=delta("plan_busy_int"),
         plan_lane_rounds=cfg.n_planner_lanes * meas_rounds,
         committed=commits,
         admitted=admitted,
         offered=0,
+        rejected=rejected,
+        shed=shed,
+        timedout=delta("pol_timedout"),
+        sacrificed=delta("pol_sacrificed"),
     )
     return SimResult(
         commits=commits,
-        aborts_deadlock=int(snap["aborts_dl"]) - int(wsnap["aborts_dl"]),
-        aborts_ollp=int(snap["aborts_ollp"]) - int(wsnap["aborts_ollp"]),
-        wasted_ops=int(snap["wasted"]) - int(wsnap["wasted"]),
+        aborts_deadlock=delta("aborts_dl"),
+        aborts_ollp=delta("aborts_ollp"),
+        wasted_ops=delta("wasted"),
         rounds=meas_rounds,
         sim_seconds=sim_seconds,
         throughput_txn_s=commits / max(sim_seconds, 1e-12),
@@ -113,6 +140,7 @@ def _result(cfg, snap, wsnap, ri, wri, wall) -> SimResult:
             wall_s_group=round(wall, 3),
             group_cells=1,
             engine_version=ENGINE_VERSION,
+            **{k: delta(k) for k in _OPT_SCALARS if k in snap},
         ),
         metrics=met,
     )
@@ -139,16 +167,21 @@ def simulate_plans(
     plan = plans[0]
     meta = engine_lib.plan_meta(cfg, plan)
     p = plan_from_numpy(engine_lib.plan_device(cfg, plan), dev)
-    state = engine_lib._state0(
-        cfg, plan.num_records, cfg.n_slots, meta.max_keys, dev
-    )
-    step = engine_lib.make_step(cfg, meta, dev)
+    batch = cfg.is_batch_planned
+    if batch:
+        state = engine_lib._batch_state0(cfg, plan, cfg.n_slots, dev)
+        step = engine_lib.make_batch_step(cfg, meta, dev)
+    else:
+        state = engine_lib._state0(
+            cfg, plan.num_records, cfg.n_slots, meta.max_keys, dev
+        )
+        step = engine_lib.make_step(cfg, meta, dev)
 
     t0 = time.time()
     warm, warm_rounds = _zeros_like_counters(), 0
     final, rounds_done, stop = None, 0, None
     for b in chunk_boundaries(cfg):
-        state = run_chunk(step, p, state, b)
+        state = run_chunk(step, p, state, b, rebase=not batch)
         host = read_counters(state)
         rounds_done, final = b, host
         if b <= cfg.warmup_rounds:

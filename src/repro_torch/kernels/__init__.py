@@ -6,7 +6,9 @@ Each kernel directory has:
   ref.py    — the plain PyTorch version, used for CPU tensors and held
               against the kernel on the card
 
-  lock_grant — segmented FIFO lock grant (ORTHRUS's grant pass)
+  lock_grant    — segmented FIFO lock grant (ORTHRUS's grant pass)
+  dep_wavefront — segmented dependency-miss counts (the batch engine's
+                  readiness scan: dgcc, quecc, scheduled)
 
 A wrapper launches its kernel for a CUDA tensor and raises if it cannot;
 it runs the plain version only for a tensor that lies on the CPU.

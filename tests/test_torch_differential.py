@@ -27,14 +27,42 @@ CELLS = {
 SIM = dict(max_rounds=900, warmup_rounds=250, chunk_rounds=200,
            target_commits=10**9)
 
+# batch-planned cells: 96 txns in 16-txn batches, so the runs roll over
+# several batches (the per-step differentials also wrap the workload)
+YCSB_B = dict(WORKLOADS["ycsb_hot"], num_txns=96, batch_epoch=16)
+YCSB_MP = dict(kind="ycsb", num_txns=96, num_records=10_000, num_hot=8,
+               multipart_frac=1.0, num_partitions=8, batch_epoch=16, seed=7)
+TPCC_B = dict(WORKLOADS["tpcc_ollp"], num_txns=96, batch_epoch=16)
+BATCH_CELLS = {
+    "dgcc_2_6_2": (YCSB_B, dict(protocol="dgcc", n_cc=2, n_exec=6, window=2)),
+    "dgcc_tpcc": (TPCC_B, dict(protocol="dgcc", n_cc=2, n_exec=6, window=2)),
+    "quecc_4_6_2": (YCSB_B, dict(protocol="quecc", n_cc=4, n_exec=6,
+                                 window=2)),
+    "scheduled_8": (YCSB_B, dict(protocol="scheduled", n_exec=8)),
+    "dgcc_frag": (YCSB_MP, dict(protocol="dgcc", n_cc=2, n_exec=6, window=2,
+                                fragment_exec=True)),
+    "quecc_frag_pipe": (YCSB_MP, dict(protocol="quecc", n_cc=4, n_exec=6,
+                                      window=2, fragment_exec=True,
+                                      inter_batch_pipeline=True)),
+    # the planner-lane model, closed loop
+    "dgcc_planner_l1": (YCSB_B, dict(protocol="dgcc", n_cc=2, n_exec=6,
+                                     window=2, n_planner_lanes=1)),
+    "scheduled_planner_l2": (YCSB_B, dict(protocol="scheduled", n_exec=8,
+                                          n_planner_lanes=2)),
+    "quecc_frag_pipe_planner_l2": (
+        YCSB_MP, dict(protocol="quecc", n_cc=4, n_exec=6, window=2,
+                      fragment_exec=True, inter_batch_pipeline=True,
+                      n_planner_lanes=2)),
+}
 
-def _both(eng_kw, wl_kw, sim):
+
+def _both(eng_kw, wl_kw, sim, impl="auto"):
     ref = ref_engine.run_simulation(
         ref_engine.EngineConfig(**eng_kw, **sim),
         ref_workloads.make_workload(ref_workloads.WorkloadConfig(**wl_kw)),
     )
     got = engine.run_simulation(
-        engine.EngineConfig(**eng_kw, **sim),
+        engine.EngineConfig(**eng_kw, **sim, kernel_impl=impl),
         workloads.make_workload(workloads.WorkloadConfig(**wl_kw)),
         device="cpu",
     )
@@ -58,6 +86,34 @@ def test_target_commits_stop_matches_reference(cell):
     reach the target, in both packages."""
     sim = dict(SIM, target_commits=8, chunk_rounds=100)
     got, ref = _both(CELLS[cell], WORKLOADS["ycsb_hot"], sim)
+    assert got.raw["rounds_total"] < sim["max_rounds"]
+    assert fingerprint(got, include_metrics=True) == fingerprint(
+        ref, include_metrics=True)
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas"])
+@pytest.mark.parametrize("cell", sorted(BATCH_CELLS))
+def test_batch_fingerprint_matches_reference(cell, impl):
+    """Every reported integer of a batch-planned run, the optional
+    counters of ``raw`` (pipelined admission, planner lanes) and the
+    metrics included, on the plain path and through the kernel's wrapper
+    (its plain version on CPU tensors)."""
+    wl_kw, eng_kw = BATCH_CELLS[cell]
+    got, ref = _both(eng_kw, wl_kw, SIM, impl)
+    assert fingerprint(got, include_metrics=True) == fingerprint(
+        ref, include_metrics=True)
+    skip = {"wall_s_group"}
+    assert {k: v for k, v in got.raw.items() if k not in skip} == {
+        k: v for k, v in ref.raw.items() if k not in skip}
+    assert got.metrics.breakdown_ext == ref.metrics.breakdown_ext
+    assert got.metrics.summary_row() == ref.metrics.summary_row()
+    assert got.raw["next_txn"] > wl_kw["batch_epoch"]  # batches rolled over
+
+
+def test_batch_target_commits_stop_matches_reference():
+    sim = dict(SIM, target_commits=8, chunk_rounds=100)
+    wl_kw, eng_kw = BATCH_CELLS["quecc_frag_pipe"]
+    got, ref = _both(eng_kw, wl_kw, sim)
     assert got.raw["rounds_total"] < sim["max_rounds"]
     assert fingerprint(got, include_metrics=True) == fingerprint(
         ref, include_metrics=True)

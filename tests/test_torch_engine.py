@@ -26,8 +26,24 @@ TPCC = dict(kind="tpcc", num_txns=128, num_warehouses=2, ollp_miss_prob=0.5,
             seed=2)
 ORTHRUS = dict(protocol="orthrus", n_cc=2, n_exec=3, window=2)
 DF = dict(protocol="deadlock_free", n_exec=4)
+# batch-planned cells: four 16-txn batches, so 200 steps wrap the
+# workload; multipart txns so fragments differ from txns
+YCSB_B = dict(YCSB, num_txns=64, batch_epoch=16)
+YCSB_MP = dict(kind="ycsb", num_txns=64, num_records=5000, num_hot=8,
+               multipart_frac=1.0, num_partitions=8, batch_epoch=16, seed=1)
+TPCC_B = dict(TPCC, num_txns=64, batch_epoch=16)
+DGCC = dict(protocol="dgcc", n_cc=2, n_exec=3, window=2)
+QUECC = dict(protocol="quecc", n_cc=2, n_exec=3, window=2)
+SCHED = dict(protocol="scheduled", n_exec=5)
+DGCC_FRAG = dict(DGCC, fragment_exec=True)
+QUECC_PIPE = dict(QUECC, fragment_exec=True, inter_batch_pipeline=True)
+DGCC_LANES = dict(DGCC, n_planner_lanes=1)
 SIM = dict(max_rounds=800, warmup_rounds=250, chunk_rounds=200,
            target_commits=10**9)
+
+
+def _no_rebase(state):
+    return state
 
 
 def _workloads(wl_kw):
@@ -42,12 +58,33 @@ def _workloads(wl_kw):
     (DF, YCSB, True, "jnp"),
     (DF, YCSB, False, "jnp"),
     (DF, TPCC, True, "jnp"),
+    (DGCC, YCSB_B, True, "jnp"),
+    (DGCC, YCSB_B, False, "pallas"),
+    (DGCC, TPCC_B, True, "pallas"),
+    (QUECC, YCSB_B, True, "pallas"),
+    (QUECC, YCSB_B, False, "jnp"),
+    (SCHED, YCSB_B, True, "pallas"),
+    (SCHED, YCSB_B, False, "jnp"),
+    (DGCC_FRAG, YCSB_MP, True, "pallas"),
+    (DGCC_FRAG, YCSB_MP, False, "jnp"),
+    (QUECC_PIPE, YCSB_MP, True, "jnp"),
+    (QUECC_PIPE, YCSB_MP, False, "pallas"),
+    (DGCC_LANES, YCSB_B, True, "pallas"),
+    (DGCC_LANES, YCSB_B, False, "jnp"),
 ], ids=["orthrus-leap", "orthrus-dense", "orthrus-tpcc-kernel-wrapper",
-        "df-leap", "df-dense", "df-tpcc"])
+        "df-leap", "df-dense", "df-tpcc",
+        "dgcc-leap", "dgcc-dense-kernel-wrapper", "dgcc-tpcc-kernel-wrapper",
+        "quecc-leap-kernel-wrapper", "quecc-dense",
+        "scheduled-leap-kernel-wrapper", "scheduled-dense",
+        "dgcc-frag-leap-kernel-wrapper", "dgcc-frag-dense",
+        "quecc-frag-pipe-leap", "quecc-frag-pipe-dense-kernel-wrapper",
+        "dgcc-planner-lanes-leap-kernel-wrapper",
+        "dgcc-planner-lanes-dense"])
 def test_step_matches_reference(eng_kw, wl_kw, leap, impl):
     """From one carried-across state, >= 200 steps of both engines (with
     the chunk runner's stamp rebase and chunk bounds) leave every state
-    array equal after every step."""
+    array equal after every step. The batch engine starts from its own
+    initial state, which must equal the reference's."""
     wl, ref_wl = _workloads(wl_kw)
     cfg = engine.EngineConfig(**eng_kw, event_leap=leap, kernel_impl=impl)
     ref_cfg = ref_engine.EngineConfig(**eng_kw, event_leap=leap,
@@ -57,21 +94,36 @@ def test_step_matches_reference(eng_kw, wl_kw, leap, impl):
     p_np = ref_engine.plan_device(ref_cfg, ref_plan)
     p_ref = {k: jnp.asarray(v) for k, v in p_np.items()}
     p = plan_from_numpy(p_np, "cpu")
-    ref_step = jax.jit(ref_engine.make_step(ref_cfg, meta))
-    ref_rebase = jax.jit(ref_engine.rebase_enq)
-    step = engine.make_step(cfg, engine.plan_meta(cfg, engine.make_plan(cfg, wl)),
-                            "cpu")
-
-    s_ref = ref_engine._state0(ref_cfg, ref_plan.num_records, cfg.n_slots,
-                               meta.max_keys)
-    s = state_from_numpy({k: np.asarray(v) for k, v in s_ref.items()}, "cpu")
+    plan = engine.make_plan(cfg, wl)
+    batch = cfg.is_batch_planned
+    if batch:
+        ref_step = jax.jit(ref_engine.make_batch_step(ref_cfg, meta))
+        step = engine.make_batch_step(cfg, engine.plan_meta(cfg, plan), "cpu")
+        s_ref = ref_engine._batch_state0(ref_cfg, ref_plan, cfg.n_slots)
+        s = engine._batch_state0(cfg, plan, cfg.n_slots, "cpu")
+        got = state_to_numpy(s)
+        assert sorted(got) == sorted(s_ref)
+        for k, v in s_ref.items():
+            np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+        rebase = ref_rebase = _no_rebase  # no lock table, no stamps
+    else:
+        ref_step = jax.jit(ref_engine.make_step(ref_cfg, meta))
+        ref_rebase = jax.jit(ref_engine.rebase_enq)
+        rebase = engine.rebase_enq
+        step = engine.make_step(cfg, engine.plan_meta(cfg, plan), "cpu")
+        s_ref = ref_engine._state0(ref_cfg, ref_plan.num_records, cfg.n_slots,
+                                   meta.max_keys)
+        s = state_from_numpy({k: np.asarray(v) for k, v in s_ref.items()},
+                             "cpu")
     assert sorted(s) == sorted(s_ref)
     n_steps, r_end = 0, 0
-    while n_steps < 200:
+    # leaping batch runs go on until the workload wraps (stale flags)
+    wrap = meta.n_txns if batch and leap else -1
+    while n_steps < 200 or int(s_ref["next_txn"]) <= wrap:
         r_end += 37  # chunk bounds that clamp leaps
         while int(s_ref["r"]) < r_end:
             s_ref = ref_step(p_ref, ref_rebase(s_ref), jnp.int32(r_end))
-            s = step(p, engine.rebase_enq(s), torch.tensor(r_end, dtype=torch.int32))
+            s = step(p, rebase(s), torch.tensor(r_end, dtype=torch.int32))
             n_steps += 1
             got = state_to_numpy(s)
             for k, v in s_ref.items():
@@ -84,6 +136,19 @@ def test_step_matches_reference(eng_kw, wl_kw, leap, impl):
 @pytest.mark.parametrize("eng_kw", [ORTHRUS, DF], ids=["orthrus", "df"])
 @pytest.mark.parametrize("wl_kw", [YCSB, TPCC], ids=["ycsb", "tpcc"])
 def test_leap_matches_dense(eng_kw, wl_kw):
+    _assert_leap_matches_dense(eng_kw, wl_kw)
+
+
+@pytest.mark.parametrize("eng_kw,wl_kw", [
+    (DGCC, YCSB_B), (QUECC, TPCC_B), (SCHED, YCSB_B), (DGCC_FRAG, YCSB_MP),
+    (QUECC_PIPE, YCSB_MP), (DGCC_LANES, YCSB_B),
+], ids=["dgcc", "quecc-tpcc", "scheduled", "dgcc-frag", "quecc-frag-pipe",
+        "dgcc-planner-lanes"])
+def test_batch_leap_matches_dense(eng_kw, wl_kw):
+    _assert_leap_matches_dense(eng_kw, wl_kw)
+
+
+def _assert_leap_matches_dense(eng_kw, wl_kw):
     wl, _ = _workloads(wl_kw)
     res = {
         leap: engine.run_simulation(
@@ -198,9 +263,9 @@ UNPORTED = [
     dict(protocol="twopl_waitfor", n_exec=4),
     dict(protocol="twopl_dreadlocks", n_exec=4),
     dict(protocol="partitioned_store", n_exec=4),
-    dict(protocol="dgcc", n_exec=4, n_cc=2),
-    dict(protocol="quecc", n_exec=4, n_cc=2),
-    dict(protocol="scheduled", n_exec=4),
+    dict(protocol="dgcc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
+    dict(protocol="quecc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
+    dict(protocol="scheduled", n_exec=4, epoch_interval_rounds=50),
     dict(protocol="deadlock_free", n_exec=4, epoch_interval_rounds=50),
     dict(protocol="orthrus", n_exec=4, n_cc=2, retry_budget=3),
     dict(protocol="deadlock_free", n_exec=4, backoff_mode="exp"),

@@ -42,4 +42,9 @@ def test_golden_trace_on_port(name):
 
 def test_ported_golden_cells():
     ported = {n for n, (_w, e) in CELLS.items() if _slice_of(e) is None}
-    assert ported == {"orthrus", "deadlock_free", "deadlock_free_tpcc_ollp"}
+    assert ported == {"orthrus", "deadlock_free", "deadlock_free_tpcc_ollp",
+                      "dgcc", "quecc", "scheduled", "dgcc_frag", "quecc_frag",
+                      "quecc_frag_pipe"}
+    # the planner-lane goldens run open arrival, which slice 3 brings
+    for name in ("dgcc_planner_sat", "scheduled_planner_sat"):
+        assert _slice_of(CELLS[name][1]) == 3

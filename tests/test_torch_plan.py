@@ -65,6 +65,50 @@ def test_workload_plan_and_plan_arrays_match_reference(name):
         np.testing.assert_array_equal(t.numpy(), np.asarray(v), err_msg=k)
 
 
+BATCH_CELLS = sorted(
+    name for name, (_wl, eng) in CELLS.items()
+    if eng["protocol"] in ("dgcc", "quecc", "scheduled")
+)
+
+
+def _closed_loop_key(k):
+    """A batch plan key of the closed loop: not the open-arrival
+    (``cum_usize``), bursty-arrival (``ep_sched``, ``sched_*``) or
+    admission-policy (``pol_*``) keys, which come with slice 3."""
+    return k != "cum_usize" and not k.startswith(("ep_sched", "sched_",
+                                                   "pol_"))
+
+
+def test_batch_cells_cover_the_batch_engine():
+    kw = [CELLS[n][1] for n in BATCH_CELLS]
+    assert {e["protocol"] for e in kw} == {"dgcc", "quecc", "scheduled"}
+    assert any(e.get("inter_batch_pipeline") for e in kw)
+    assert any(e.get("n_planner_lanes") for e in kw)
+
+
+@pytest.mark.parametrize("name", BATCH_CELLS)
+def test_batch_plan_arrays_match_reference(name):
+    """plan_meta and every closed-loop plan_device array of the batch
+    engine, planning latencies and planner-lane work included."""
+    wl_kw, eng_kw = CELLS[name]
+    cfg = engine.EngineConfig(**eng_kw, **SIM)
+    ref_cfg = ref_engine.EngineConfig(**eng_kw, **SIM)
+    plan = engine.make_plan(
+        cfg, workloads.make_workload(workloads.WorkloadConfig(**wl_kw)))
+    ref_plan = ref_engine.make_plan(
+        ref_cfg,
+        ref_workloads.make_workload(ref_workloads.WorkloadConfig(**wl_kw)))
+    assert dataclasses.astuple(engine.plan_meta(cfg, plan)) == (
+        dataclasses.astuple(ref_engine.plan_meta(ref_cfg, ref_plan)))
+    p = engine.plan_device(cfg, plan)
+    ref_p = {k: v for k, v in ref_engine.plan_device(ref_cfg, ref_plan).items()
+             if _closed_loop_key(k)}
+    assert sorted(p) == sorted(ref_p)
+    for k, v in ref_p.items():
+        assert p[k].dtype == np.asarray(v).dtype, k
+        np.testing.assert_array_equal(p[k], np.asarray(v), err_msg=k)
+
+
 @pytest.mark.parametrize("protocol", ["dgcc", "quecc", "scheduled",
                                       "twopl_waitdie", "partitioned_store"])
 def test_other_protocols_plan_like_reference(protocol):
