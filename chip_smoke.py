@@ -5,7 +5,7 @@
 
 Phases (each raises on failure; the script then exits non-zero):
 
-  1. build   — compile every CUDA kernel of the path from this checkout,
+  1. build   — compile every CUDA kernel of the paths from this checkout,
                all at once (``nvcc`` for sm_90a, one process per source,
                into build/repro_torch_kernels/);
   2. kernels — hold each kernel bit-equal (integers, tolerance 0) to its
@@ -33,7 +33,23 @@ Phases (each raises on failure; the script then exits non-zero):
                on the plain path (identical fingerprints, metrics
                included); dep_wavefront launches = steps on every kernel
                run; step profiles of dgcc on both paths and of
-               quecc_frag_pipe.
+               quecc_frag_pipe;
+  6. main path, slice 3 — gemma3-1b serving at its published width (26
+               layers, d_model 1,152, vocab 262,144, bf16, random weights
+               from SEED) through ``ServingEngine``: 8 slots of 4,096
+               positions, 16 requests with prompts of 600-3,000 tokens and
+               32 new tokens each, on the kernel path (flash_attention
+               launches = 26 per prefilled request) and on the plain path
+               (none); first-token logits of the two paths held to
+               FIRST_LOGIT_TOL; tokens/s, prefill ms per request, decode ms
+               per step and the device busy share (torch.profiler).
+
+Phase 2 also holds flash_attention to its plain version (f32 3e-5;
+bf16 2e-2 or one unit in the output's last place, whichever is larger)
+on the q/k/v of every layer of a real full-width 2,048-token gemma3-1b
+prefill and on random inputs at gemma's shape (S = 7 .. 4,096, every
+kind) and test_kernels.py's, and times it beside its plain version and
+F.scaled_dot_product_attention.
 
 Each path sets the kernels' launch counts to 0 just before it and reads
 them just after. Then it prints the kernels' JSON line, the card's name
@@ -77,6 +93,20 @@ QUECC_FRAG_PIPE_FULL = dict(protocol="quecc", n_cc=8, n_exec=32, window=4,
                             fragment_exec=True, inter_batch_pipeline=True)
 YCSB_FIG18 = dict(YCSB_FULL, hot_per_txn=1)
 SCHEDULED_FULL = dict(protocol="scheduled", n_exec=40)
+# gemma3-1b serving (slice 3): weights and prompts from SEED
+SEED = 0
+SERVE_SLOTS, SERVE_CACHE_LEN = 8, 4096
+SERVE_REQUESTS, SERVE_PROMPT_LENS, SERVE_NEW_TOKENS = 16, (600, 3000), 32
+# largest |logit| difference allowed between the kernel and the plain
+# path at a request's first token: both paths round to bf16 (8 bits of
+# mantissa) at every op of 26 layers, they differ in where the attention
+# scores are rounded, and the logits have a spread of about 0.7
+FIRST_LOGIT_TOL = 0.25
+# kernel vs plain version: tests/test_kernels.py's tolerances; in bf16 an
+# output of magnitude >= 4 may also differ by one unit in its last place
+# (0.03125 there): the two round p and the sum at different points
+FA_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+BF16_OPS_PER_S = 989e12  # tensor cores, dense
 BATCH_CELLS = (("dgcc", DGCC_FULL, YCSB_FULL),
                ("quecc", QUECC_FULL, YCSB_FULL),
                ("quecc_frag_pipe", QUECC_FRAG_PIPE_FULL, YCSB_FIG14),
@@ -488,6 +518,256 @@ def check_dep_wavefront(device, sizes=(40, 128, 768, 1000, 1024, 3000, 4096,
     )
 
 
+def tree_tensors(tree):
+    """Every tensor of a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_tensors(v)
+    else:
+        yield tree
+
+
+def gemma_model(device):
+    """gemma3-1b at its published width, bf16, random weights from SEED."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("gemma3-1b")
+    t0 = time.time()
+    params = M.init_params(cfg, SEED, device)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_tensors(params))
+    print(f"gemma3-1b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV head of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}: {n} parameters in "
+          f"{cfg.dtype}, made on the card in {time.time() - t0:.3f} s")
+    return cfg, params
+
+
+def capture_attention(cfg, params, seq_len, device):
+    """The kernel's inputs at every layer of one full-width prefill of a
+    ``seq_len``-token prompt (the main path's calls, in layer order)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+
+    captured = []
+    original = layers.flash_attention
+
+    def capture(q, k, v, *, kind, window):
+        captured.append((q.clone(), k.clone(), v.clone(), kind, window))
+        return original(q, k, v, kind=kind, window=window)
+
+    prompt = np.random.default_rng(SEED + 1).integers(2, cfg.vocab_size,
+                                                      seq_len)
+    layers.flash_attention = capture
+    try:
+        M.prefill(params, cfg, torch.as_tensor(prompt, device=device)[None],
+                  kernel_impl="auto")
+    finally:
+        layers.flash_attention = original
+    if len(captured) != cfg.num_layers:
+        raise AssertionError(f"a prefill made {len(captured)} attention "
+                             f"calls, not {cfg.num_layers}")
+    return captured
+
+
+def attention_bound(q, k, kind, window):
+    """(bound ms, bound_by) of one attention call: the two products'
+    operations over the visible (query, key) pairs, at the peak for the
+    input type (bf16 tensor cores; f32 CUDA cores), against q, k, v read
+    once and o written once at the HBM rate."""
+    import numpy as np
+    import torch
+
+    B, S, HQ, D = q.shape
+    T, HKV = k.shape[1], k.shape[2]
+    qp = np.arange(S)
+    n = np.minimum(qp + 1, T)
+    if kind == "swa" and window:
+        n = np.minimum(n, window)
+    elif kind == "chunked" and window:
+        n = np.minimum(n, qp % window + 1)
+    flops = 4 * B * HQ * D * int(n.sum())
+    bf16 = q.dtype == torch.bfloat16
+    ops_ms = flops / (BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S) * 1e3
+    n_bytes = (2 * B * S * HQ * D + 2 * B * T * HKV * D) * q.element_size()
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def sdpa_call(q, k, v, kind, window):
+    """One F.scaled_dot_product_attention call computing the kernel's
+    function (the yardstick; the port never calls it): is_causal for
+    full, an explicit boolean mask for swa and chunked."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import mask_fn
+
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if kind == "full":
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True).transpose(1, 2)
+    mask = mask_fn(kind, torch.arange(q.shape[1], device=q.device),
+                   torch.arange(k.shape[1], device=q.device), window)
+    return lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+
+def cuda_kernel_names(fn) -> str:
+    """The CUDA kernels one call of ``fn`` runs (which SDPA backend)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return "; ".join(e.key[:70] for e in kern[:3])
+
+
+def random_attention(B, S, HQ, HKV, D, dtype, seed, device, scale=1.0):
+    """q, k, v [B, S, H, D] from a seed: unit normal by default, as q and
+    k are after gemma's qk-norm."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return tuple((torch.randn((B, S, h, D), generator=g, device=device)
+                  * scale).to(dtype) for h in (HQ, HKV, HKV))
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits), 0 at 0."""
+    import torch
+
+    mag = x.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return torch.where(mag > 0, ulp, torch.zeros_like(ulp))
+
+
+def check_flash_attention(device, model) -> dict:
+    """Phase 2: flash_attention against its plain version, within the
+    tolerances of tests/test_kernels.py, on a real full-width prefill
+    and on random inputs; times at gemma's shapes."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    cfg, params = model
+    worst = [0.0]
+    failed = []
+
+    def check(label, q, k, v, kind, window):
+        """Largest |kernel - plain| and its ratio to the tolerance."""
+        got = ops.flash_attention_cuda(q, k, v, kind=kind, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, kind=kind, window=window).float()
+        diff = (got.float() - want).abs()
+        if q.dtype == torch.bfloat16:
+            tol = torch.clamp(bf16_ulp(want), min=FA_TOL["bfloat16"])
+        else:
+            tol = FA_TOL["float32"]
+        err, ratio = float(diff.max()), float((diff / tol).max())
+        if not (ratio <= 1 and bool(torch.isfinite(got).all())):
+            failed.append(f"{label} {kind} {window} {q.dtype}: {err}")
+        worst[0] = max(worst[0], err)
+        return err, ratio
+
+    seq = 2048
+    real = capture_attention(cfg, params, seq, device)
+    for kind in ("swa", "full"):
+        errs = [check(f"layer {i}", q, k, v, kd, w)
+                for i, (q, k, v, kd, w) in enumerate(real) if kd == kind]
+        print(f"flash_attention: the {len(errs)} {kind} layers of a "
+              f"full-width {seq}-token gemma3-1b prefill (bf16, q "
+              f"{tuple(real[0][0].shape)}): max_abs_err "
+              f"{max(e for e, _ in errs)}, at most {max(r for _, r in errs)} "
+              f"of the tolerance")
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in (7, 511, 512, 513, 2048, 4096):
+            args = random_attention(1, s, cfg.num_heads, cfg.num_kv_heads,
+                                    cfg.head_dim, dtype, s, device)
+            for kind, w in (("full", 0), ("swa", cfg.window),
+                            ("chunked", cfg.window)):
+                e, r = check(f"random S={s}", *args, kind, w)
+                print(f"flash_attention: random S={s} {kind} window {w} "
+                      f"{dtype}: max_abs_err {e}, {r} of the tolerance")
+    for B, s, h, kv, d in ((2, 128, 4, 2, 32), (2, 256, 2, 2, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = random_attention(B, s, h, kv, d, dtype, s + h, device,
+                                    scale=0.2)
+            for kind, w in (("full", 0), ("swa", 64), ("chunked", 64)):
+                e, r = check(f"test_kernels B={B} S={s} H={h} KV={kv} "
+                             f"d={d}", *args, kind, w)
+                print(f"flash_attention: test_kernels shape B={B} S={s} "
+                      f"H={h} KV={kv} d={d} {kind} {dtype}: max_abs_err {e}, "
+                      f"{r} of the tolerance")
+    if failed:
+        raise AssertionError("flash_attention disagrees with its plain "
+                             "version: " + "; ".join(failed))
+
+    def timed(label, q, k, v, kind, window):
+        ms = graph_ms(lambda: ops.flash_attention_cuda(
+            q, k, v, kind=kind, window=window), repeats=10, samples=11)
+        plain_ms = graph_ms(lambda: flash_attention_ref(
+            q, k, v, kind=kind, window=window), repeats=10, samples=11)
+        lib = sdpa_call(q, k, v, kind, window)
+        lib_ms = graph_ms(lib, repeats=10, samples=11)
+        lib_err = float((lib().float() - flash_attention_ref(
+            q, k, v, kind=kind, window=window).float()).abs().max())
+        bound_ms, bound_by = attention_bound(q, k, kind, window)
+        print(f"flash_attention device time, {label} {kind} {q.dtype} q "
+              f"{tuple(q.shape)}: kernel {ms:.6f} ms, plain {plain_ms:.6f} "
+              f"ms, F.scaled_dot_product_attention {lib_ms:.6f} ms "
+              f"(max_abs_err {lib_err} vs plain; kernels: "
+              f"{cuda_kernel_names(lib)}), bound {bound_ms:.6f} ms "
+              f"({bound_by}), kernel at {bound_ms / ms:.4f} of its bound")
+        return ms, plain_ms, lib_ms, bound_ms, bound_by
+
+    first = {kd: i for i, (_q, _k, _v, kd, _w) in reversed(list(
+        enumerate(real)))}
+    ms, plain_ms, lib_ms, bound_ms, bound_by = timed(
+        f"layer {first['full']} of the {seq}-token prefill",
+        *real[first["full"]])
+    timed(f"layer {first['swa']} of the {seq}-token prefill",
+          *real[first["swa"]])
+    for s in (513, 4096):
+        args = random_attention(1, s, cfg.num_heads, cfg.num_kv_heads,
+                                cfg.head_dim, torch.bfloat16, s, device)
+        for kind, w in (("full", 0), ("swa", cfg.window)):
+            timed(f"random S={s}", *args, kind, w)
+    timed("random S=2048", *random_attention(
+        1, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+        torch.float32, 2048, device), "full", 0)
+    return dict(
+        name="flash_attention",
+        route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:74",
+        launches=0,
+        max_abs_err=worst[0],
+        ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        library_ms=lib_ms,
+    )
+
+
 def replay_goldens(device) -> None:
     """Phase 3: the golden fixtures, bit-exactly, on ``device``."""
     from repro_torch.core.engine import EngineConfig, run_simulation
@@ -540,10 +820,12 @@ def make_full_workload(wl_kw):
 
 def reset_launches() -> None:
     from repro_torch.kernels.dep_wavefront import ops as dw_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.lock_grant import ops as lg_ops
 
     lg_ops.launches = 0
     dw_ops.launches = 0
+    fa_ops.launches = 0
 
 
 def main_path_slice1(device) -> int:
@@ -617,6 +899,152 @@ def main_path_slice2(device) -> int:
     return total
 
 
+
+def serve_requests(cfg):
+    """The serving phase's requests: prompt lengths and tokens from SEED."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(SEED)
+    lo, hi = SERVE_PROMPT_LENS
+    lens = rng.integers(lo, hi + 1, SERVE_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, n).astype(
+                np.int32), max_new_tokens=SERVE_NEW_TOKENS)
+            for i, n in enumerate(lens)]
+
+
+def serve_run(model, device, kernel_impl):
+    """One whole serving run: (engine, answered requests, wall s)."""
+    import torch
+
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg, params = model
+    eng = ServingEngine(cfg, ServeConfig(batch_slots=SERVE_SLOTS,
+                                         cache_len=SERVE_CACHE_LEN),
+                        params, device=device, kernel_impl=kernel_impl)
+    reqs = serve_requests(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    return eng, done, time.perf_counter() - t0
+
+
+def first_token_logits(model, device, outputs) -> None:
+    """Each request's prefill logits on the kernel and the plain path: the
+    largest difference, held to FIRST_LOGIT_TOL, and each path's argmax
+    equal to the first token its engine run gave."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    cfg, params = model
+    worst = scale = 0.0
+    for req in serve_requests(cfg):
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device=device)[None]
+        logits = {}
+        for impl in ("auto", "jnp"):
+            lg, _ = M.prefill(params, cfg, prompt, kernel_impl=impl)
+            lg = lg[0, -1].float()
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"request {req.rid} kernel_impl={impl}: "
+                                     f"non-finite logits")
+            if int(torch.argmax(lg)) != outputs[impl][req.rid][0]:
+                raise AssertionError(f"request {req.rid} kernel_impl={impl}: "
+                                     f"the engine's first token is not the "
+                                     f"prefill's argmax")
+            logits[impl] = lg
+        worst = max(worst, float((logits["auto"] - logits["jnp"]).abs().max()))
+        scale = max(scale, float(logits["jnp"].abs().max()))
+    print(f"gemma3-1b first-token logits, kernel vs plain path, over the "
+          f"{SERVE_REQUESTS} prompts: max |difference| {worst} (tolerance "
+          f"{FIRST_LOGIT_TOL}; largest |logit| {scale})")
+    if not worst <= FIRST_LOGIT_TOL:
+        raise AssertionError(f"first-token logits differ by {worst} > "
+                             f"{FIRST_LOGIT_TOL}")
+
+
+def profile_serving(model, device, wall_s) -> None:
+    """The kernel path's serving run again under torch.profiler (CUDA
+    activity only: about 210,000 kernels): CUDA kernels, device seconds,
+    and the device busy share against the unprofiled run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _eng, _done, prof_wall = serve_run(model, device, "auto")
+    t0 = time.time()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    print(f"profile gemma3-1b serving: the trace read in "
+          f"{time.time() - t0:.3f} s")
+    n_kernels = sum(e.count for e in kern)
+    dev_s = sum(e.self_device_time_total for e in kern) / 1e6
+    fa_s = sum(e.self_device_time_total for e in kern
+               if "flash_attention_kernel" in e.key) / 1e6
+    if n_kernels <= 0 or fa_s <= 0:
+        raise AssertionError("the profiler saw no CUDA kernel or no "
+                             "flash_attention kernel")
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"profile gemma3-1b serving, kernel path: {n_kernels} CUDA "
+          f"kernels, device {dev_s:.4f} s against {wall_s:.4f} s wall "
+          f"unprofiled ({prof_wall:.4f} s under the profiler): device busy "
+          f"share {dev_s / wall_s:.4f}; flash_attention {fa_s:.4f} s "
+          f"({fa_s / dev_s:.4f} of device time); top kernels: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
+                      for e in top))
+
+
+def main_path_slice3(device, model) -> int:
+    """Phase 6: gemma3-1b serving at full width through ServingEngine, on
+    the kernel and the plain path. Returns the flash_attention launches
+    of the kernel path's run."""
+    from repro_torch.kernels.flash_attention import ops
+
+    cfg, _params = model
+    outputs, walls, launches = {}, {}, {}
+    for impl in ("auto", "jnp"):
+        reset_launches()
+        eng, done, wall = serve_run(model, device, impl)
+        launches[impl] = ops.launches
+        st = eng.stats
+        n_tok = sum(len(r.output) for r in done)
+        print(f"gemma3-1b serving kernel_impl={impl}: {len(done)} of "
+              f"{SERVE_REQUESTS} requests answered, {n_tok} tokens in "
+              f"{wall:.3f} s ({n_tok / wall:.2f} tokens/s); prefill "
+              f"{st['prefill_s'] / st['prefills'] * 1e3:.3f} ms per request "
+              f"({st['prefills']} prompts of {SERVE_PROMPT_LENS[0]}-"
+              f"{SERVE_PROMPT_LENS[1]} tokens, "
+              f"{sum(len(r.prompt) for r in done)} in all), decode "
+              f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms per step "
+              f"({st['decode_steps']} steps of {SERVE_SLOTS} slots); "
+              f"flash_attention launches {launches[impl]}")
+        want = cfg.num_layers * st["prefills"] if impl == "auto" else 0
+        if (len(done) != SERVE_REQUESTS or st["prefills"] != SERVE_REQUESTS
+                or launches[impl] != want):
+            raise AssertionError(f"kernel_impl={impl}: {len(done)} answered, "
+                                 f"{st['prefills']} prefills, "
+                                 f"{launches[impl]} flash_attention launches "
+                                 f"(want {want})")
+        for r in done:
+            if not (1 <= len(r.output) <= SERVE_NEW_TOKENS and all(
+                    0 <= t < cfg.vocab_size for t in r.output)):
+                raise AssertionError(f"request {r.rid}: output {r.output}")
+        outputs[impl] = {r.rid: r.output for r in done}
+        walls[impl] = wall
+    k, j = outputs["auto"], outputs["jnp"]
+    same = sum(a == b for rid in k for a, b in zip(k[rid], j[rid]))
+    print(f"gemma3-1b serving, kernel vs plain path tokens: {same} of "
+          f"{sum(len(v) for v in k.values())} positions agree; "
+          f"{sum(k[rid][0] == j[rid][0] for rid in k)} of {len(k)} first "
+          f"tokens; {sum(k[rid] == j[rid] for rid in k)} whole outputs")
+    first_token_logits(model, device, outputs)
+    profile_serving(model, device, walls["auto"])
+    return launches["auto"]
+
+
 def profile_steps(name, eng_kw, workload, device, warm: int = 100,
                   timed: int = 200, profiled: int = 20) -> None:
     """Where a full-width step's time goes: wall ms per step as the host
@@ -688,16 +1116,18 @@ def build_kernels() -> None:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.dep_wavefront import ops as dw_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.lock_grant import ops as lg_ops
 
     t0 = time.time()
     with ThreadPoolExecutor() as pool:
-        for f in [pool.submit(o._library) for o in (lg_ops, dw_ops)]:
+        for f in [pool.submit(o._library) for o in (lg_ops, dw_ops, fa_ops)]:
             f.result()
-    for name in ("lock_grant", "dep_wavefront"):
+    for name in ("lock_grant", "dep_wavefront", "flash_attention"):
         secs, log = _build.BUILD_LOG.get(name, (0.0, "(cached)"))
         print(f"build: {name}.cu in {secs:.3f} s\n{log.strip()}")
-    print(f"build: both kernels built and loaded in {time.time() - t0:.3f} s")
+    print(f"build: all three kernels built and loaded in "
+          f"{time.time() - t0:.3f} s")
 
 
 def main() -> int:
@@ -729,13 +1159,18 @@ def main() -> int:
         return out
 
     phase("build", build_kernels)
+    model = phase("model: gemma3-1b", gemma_model, device)
     rows = [phase("kernels: lock_grant", check_lock_grant, device),
-            phase("kernels: dep_wavefront", check_dep_wavefront, device)]
+            phase("kernels: dep_wavefront", check_dep_wavefront, device),
+            phase("kernels: flash_attention", check_flash_attention, device,
+                  model)]
     phase("goldens", replay_goldens, device)
     rows[0]["launches"] = phase("main path, slice 1", main_path_slice1,
                                 device)
     rows[1]["launches"] = phase("main path, slice 2", main_path_slice2,
                                 device)
+    rows[2]["launches"] = phase("main path, slice 3", main_path_slice3,
+                                device, model)
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

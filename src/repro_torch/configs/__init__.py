@@ -1,0 +1,25 @@
+"""Architecture configs (pure Python, the port's own copies).
+
+``get_config(name)`` returns the full published configuration;
+``get_smoke_config(name)`` a reduced same-family config for CPU tests.
+Only gemma3-1b is carried so far; the other archs raise
+``NotImplementedError`` naming their slice.
+"""
+
+from repro_torch.configs.base import (
+    ARCHS,
+    LayerSpec,
+    ModelConfig,
+    get_config,
+    get_smoke_config,
+    list_archs,
+)
+
+__all__ = [
+    "ARCHS",
+    "LayerSpec",
+    "ModelConfig",
+    "get_config",
+    "get_smoke_config",
+    "list_archs",
+]

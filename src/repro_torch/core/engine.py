@@ -147,8 +147,8 @@ PROTOCOLS = (
 # Protocols this port runs; the rest name the slice that brings them.
 PORTED_PROTOCOLS = ("deadlock_free", "orthrus", "dgcc", "quecc", "scheduled")
 _SLICE_OF_PROTOCOL = {
-    "twopl_waitdie": 3, "twopl_waitfor": 3, "twopl_dreadlocks": 3,
-    "partitioned_store": 3,
+    "twopl_waitdie": 7, "twopl_waitfor": 7, "twopl_dreadlocks": 7,
+    "partitioned_store": 7,
 }
 
 
@@ -359,24 +359,24 @@ def check_ported(cfg: EngineConfig) -> None:
     if cfg.epoch_interval_rounds > 0:
         raise NotImplementedError(
             "open epoch arrival (epoch_interval_rounds > 0) and the "
-            "overload layer are not ported yet (slice 3)"
+            "overload layer are not ported yet (slice 7)"
         )
     if cfg.retry_budget > 0 or cfg.backoff_mode != "fixed":
         raise NotImplementedError(
             "retry budgets and exponential backoff (the overload layer) "
-            "are not ported yet (slice 3)"
+            "are not ported yet (slice 7)"
         )
     if cfg.dispatch_rounds > 1:
         raise NotImplementedError(
-            "rounds_per_dispatch > 1 is not ported yet (slice 3)"
+            "rounds_per_dispatch > 1 is not ported yet (slice 7)"
         )
     if cfg.release_path != "csr":
         raise NotImplementedError(
-            'release_path="dense" is not ported yet (slice 3)'
+            'release_path="dense" is not ported yet (slice 7)'
         )
     if cfg.state_layout != "packed":
         raise NotImplementedError(
-            'state_layout="legacy" is not ported yet (slice 4)'
+            'state_layout="legacy" is not ported yet (slice 8)'
         )
 
 
@@ -477,7 +477,7 @@ def plan_device(cfg: EngineConfig, plan: planner_lib.Plan) -> dict:
     """The plan arrays the step reads, as numpy: the entries of
     ``repro.core.engine.plan_device`` (for the lock-table engine, open
     arrival and policy scalars included; the batch engine's open-arrival
-    and policy keys come with the steps that read them, in slice 3).
+    and policy keys come with the steps that read them, in slice 7).
     ``convert.plan_from_numpy`` moves them to a device.
     """
     if cfg.is_batch_planned:
@@ -668,7 +668,7 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     if meta.lane_cols > 0:
         raise NotImplementedError(
             "H-Store lane streams (partitioned_store) are not ported yet "
-            "(slice 3)"
+            "(slice 7)"
         )
 
     def const(v):

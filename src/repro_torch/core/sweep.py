@@ -161,7 +161,7 @@ def simulate_plans(
     if len(plans) != 1:
         raise NotImplementedError(
             "more than one plan per call (the multi-cell sweep) is not "
-            "ported yet (slice 4)"
+            "ported yet (slice 8)"
         )
     dev = engine_lib.resolve_device(device)
     plan = plans[0]

@@ -9,6 +9,8 @@ Each kernel directory has:
   lock_grant    — segmented FIFO lock grant (ORTHRUS's grant pass)
   dep_wavefront — segmented dependency-miss counts (the batch engine's
                   readiness scan: dgcc, quecc, scheduled)
+  flash_attention — online-softmax attention forward, causal / sliding
+                  window / chunked (the models' prefill attention)
 
 A wrapper launches its kernel for a CUDA tensor and raises if it cannot;
 it runs the plain version only for a tensor that lies on the CPU.
@@ -22,10 +24,11 @@ KERNEL_IMPLS = ("auto", "jnp", "pallas")
 
 
 def use_kernel(kernel_impl: str, device: torch.device | str) -> bool:
-    """Whether the engine goes through a kernel's wrapper for tensors on
-    ``device`` (``EngineConfig.kernel_impl``).
+    """Whether the engine or the model goes through a kernel's wrapper
+    for tensors on ``device`` (``EngineConfig.kernel_impl``; the
+    ``kernel_impl`` of ``prefill`` and ``ServingEngine``).
 
-    "jnp" never does: the engine runs its plain PyTorch formulation.
+    "jnp" never does: the caller runs its plain PyTorch formulation.
     "pallas" always does: the wrapper launches the CUDA kernel for a
     CUDA tensor and runs its plain version for a CPU tensor. "auto"
     does where the tensors are on a CUDA device. There is no

@@ -1,0 +1,55 @@
+"""JAX pytrees (as numpy arrays) -> the port's model parameters and caches.
+
+The JAX package stacks each pattern position's leaves over the repeats
+(``groups/l{i}`` leaves are [R, ...]) and keeps the tail apart; the port
+keeps one dict per layer in execution order. The einsum layouts are kept
+as they are: ``wq/wk/wv [d, heads, head_dim]``, ``wo [heads, head_dim,
+d]``, MLP ``wi/wg [d, ff]`` and ``wo [ff, d]``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import check_ported
+
+
+def _tensors(tree, device, index=None):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device, index) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if index is not None:
+        a = a[index]
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: exact through f32
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                          torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def _layers(cfg: ModelConfig, tree, device):
+    """Per-layer dicts in execution order from ``groups`` and ``tail``."""
+    out = []
+    for r in range(cfg.pattern_repeats):
+        for i in range(len(cfg.pattern)):
+            out.append(_tensors(tree["groups"][f"l{i}"], device, r))
+    for i in range(len(cfg.tail)):
+        out.append(_tensors(tree["tail"][f"l{i}"], device))
+    return out
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
+    """The JAX ``init_params`` pytree (numpy leaves) as the port's params."""
+    check_ported(cfg)
+    params = {k: _tensors(tree[k], device)
+              for k in ("tok_embed", "final_norm", "lm_head") if k in tree}
+    params["layers"] = _layers(cfg, tree, device)
+    return params
+
+
+def cache_from_numpy(cfg: ModelConfig, tree, device="cuda"):
+    """A JAX decode cache (numpy leaves) in the port's layout."""
+    check_ported(cfg)
+    return {"pos": _tensors(tree["pos"], device),
+            "layers": _layers(cfg, tree, device)}

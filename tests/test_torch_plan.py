@@ -74,7 +74,7 @@ BATCH_CELLS = sorted(
 def _closed_loop_key(k):
     """A batch plan key of the closed loop: not the open-arrival
     (``cum_usize``), bursty-arrival (``ep_sched``, ``sched_*``) or
-    admission-policy (``pol_*``) keys, which come with slice 3."""
+    admission-policy (``pol_*``) keys, which come with slice 7."""
     return k != "cum_usize" and not k.startswith(("ep_sched", "sched_",
                                                    "pol_"))
 
