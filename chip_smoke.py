@@ -42,14 +42,30 @@ Phases (each raises on failure; the script then exits non-zero):
                launches = 26 per prefilled request) and on the plain path
                (none); first-token logits of the two paths held to
                FIRST_LOGIT_TOL; tokens/s, prefill ms per request, decode ms
-               per step and the device busy share (torch.profiler).
+               per step and the device busy share (torch.profiler);
+  7. main path, slice 4 — rwkv6-1.6b serving at its published width (24
+               layers, d_model 2,048, 32 heads of 64, vocab 65,536, bf16,
+               random weights from SEED) through ``ServingEngine``, the
+               cell of slice 3: the kernel path serves all 16 requests
+               (rwkv6_scan launches = 24 per prefill and per decode step,
+               no flash_attention), the plain path the first
+               RWKV_PLAIN_REQUESTS of them (its loop over time issues
+               about 7 kernels per step per layer); their first-token
+               logits held to RWKV_FIRST_LOGIT_TOL, beside how far the
+               kernel path's logits move when the scan's outputs move
+               by RWKV_NUDGE; the same readings and profile as slice 3.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
 on the q/k/v of every layer of a real full-width 2,048-token gemma3-1b
 prefill and on random inputs at gemma's shape (S = 7 .. 4,096, every
 kind) and test_kernels.py's, and times it beside its plain version and
-F.scaled_dot_product_attention.
+F.scaled_dot_product_attention; and rwkv6_scan to its plain version
+(RWKV_TOL) on all 24 layers of a real full-width 3,000-token rwkv6-1.6b
+prefill, on the 24 layers of a real decode step at 8 slots, on random
+inputs (S = 1 .. 1,000, B·H = 1 .. 256, every supported head_dim) and on
+test_kernels.py's shapes, and times it at the prefill and the decode
+shape beside its plain version and its bound.
 
 Each path sets the kernels' launch counts to 0 just before it and reads
 them just after. Then it prints the kernels' JSON line, the card's name
@@ -107,6 +123,32 @@ FIRST_LOGIT_TOL = 0.25
 # (0.03125 there): the two round p and the sum at different points
 FA_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 BF16_OPS_PER_S = 989e12  # tensor cores, dense
+# rwkv6-1.6b serving (slice 4): the cell of slice 3. The plain path's
+# loop over time issues about 7 kernels per step per layer (seconds of
+# host launches per prompt of 1,800 tokens), so it serves the first
+# RWKV_PLAIN_REQUESTS requests only: a cut in requests, not in width
+RWKV_PLAIN_REQUESTS = 4
+RWKV_CHECK_SEQ = 3000  # the real prefill B5 is held on
+# kernel vs plain version: tests/test_kernels.py's absolute 2e-4 at its
+# input scales (about 0.1-0.2). On real activations the state sums
+# thousands of outer products with decays near 1 (w0 = -6: w about
+# 0.9975) and grows far past that scale; both run in f32 and differ in
+# the order of the sums, so the error there scales with the values:
+# 2e-4 or RWKV_REL_TOL of the reference's largest |value|, whichever is
+# larger
+RWKV_TOL = 2e-4
+RWKV_REL_TOL = 1e-5
+# largest |logit| difference allowed between the kernel and the plain
+# path at a request's first token: gemma's FIRST_LOGIT_TOL. The two run
+# the same bf16 ops and differ only in the order of the f32 sums inside
+# the recurrence (about 1e-6 relative), but where that flips a bf16
+# rounding of the time mix's output, the change runs through every layer
+# above it: on these prompts the logits (largest |5|, bf16 units of
+# 0.03125 there) differ by a few units. scan_rounding_sensitivity
+# prints how far they move on the kernel path alone when only the scan's
+# outputs move by one part in 10^6, the yardstick for this tolerance
+RWKV_FIRST_LOGIT_TOL = FIRST_LOGIT_TOL
+RWKV_NUDGE = 1e-6
 BATCH_CELLS = (("dgcc", DGCC_FULL, YCSB_FULL),
                ("quecc", QUECC_FULL, YCSB_FULL),
                ("quecc_frag_pipe", QUECC_FRAG_PIPE_FULL, YCSB_FIG14),
@@ -530,21 +572,23 @@ def tree_tensors(tree):
         yield tree
 
 
-def gemma_model(device):
-    """gemma3-1b at its published width, bf16, random weights from SEED."""
+def full_model(arch, device):
+    """``arch`` at its published width, bf16, random weights from SEED."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = get_config("gemma3-1b")
+    cfg = get_config(arch)
     t0 = time.time()
     params = M.init_params(cfg, SEED, device)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tree_tensors(params))
-    print(f"gemma3-1b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV head of "
-          f"{cfg.head_dim}, vocab {cfg.vocab_size}: {n} parameters in "
+    heads = (f"{cfg.ssm_heads} heads of {cfg.head_dim}" if cfg.family == "ssm"
+             else f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV "
+             f"head of {cfg.head_dim}")
+    print(f"{arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, {heads}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n} parameters in "
           f"{cfg.dtype}, made on the card in {time.time() - t0:.3f} s")
     return cfg, params
 
@@ -768,6 +812,179 @@ def check_flash_attention(device, model) -> dict:
     )
 
 
+def capture_scans(cfg, params, device, prompts, max_new_tokens, keep):
+    """The kernel's inputs (cloned) of the calls ``keep(r)`` picks, in
+    call order, from a kernel-path serving run of ``prompts`` on one slot
+    per prompt."""
+    import torch
+
+    from repro_torch.models import ssm
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    captured = []
+    original = ssm.rwkv6_scan
+
+    def capture(r, k, v, w, u, state0, *, state_out=None):
+        if keep(r):
+            captured.append(tuple(a.clone() for a in (r, k, v, w, u,
+                                                       state0)))
+        return original(r, k, v, w, u, state0, state_out=state_out)
+
+    eng = ServingEngine(cfg, ServeConfig(batch_slots=len(prompts),
+                                         cache_len=SERVE_CACHE_LEN),
+                        params, device=device, kernel_impl="auto")
+    ssm.rwkv6_scan = capture
+    try:
+        eng.run([Request(rid=i, prompt=p, max_new_tokens=max_new_tokens)
+                 for i, p in enumerate(prompts)])
+    finally:
+        ssm.rwkv6_scan = original
+    torch.cuda.synchronize()
+    return captured
+
+
+def scan_bound(r):
+    """(bound ms, bound_by) of one scan: r, k, v, w read once, o written
+    once, the state read and written once (all f32), against 5 flops per
+    (step, i, j) (the output's and the update's multiply-adds and k v)
+    and 3 per (step, i) (the bonus r u k) at the f32 peak."""
+    B, H, S, D = r.shape
+    n_bytes = 4 * (5 * B * H * S * D + 2 * B * H * D * D + H * D)
+    n_ops = B * H * S * (5 * D * D + 3 * D)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def random_scan(B, H, S, D, seed, device, views=True):
+    """r, k, v, w, u, state0 at tests/test_kernels.py's scales; r, k, v, w
+    as the model hands them in ([B,H,S,hd] views of [B,S,H,hd] tensors)
+    where ``views``."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def n(shape, scale):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    def seq(x):
+        return x.transpose(1, 2) if views else x.transpose(1, 2).contiguous()
+
+    r, k, v = (seq(n((B, S, H, D), 0.2)) for _ in range(3))
+    w = seq(torch.sigmoid(n((B, S, H, D), 1.0)) * 0.5 + 0.4)
+    return r, k, v, w, n((H, D), 0.1), n((B, H, D, D), 0.1)
+
+
+def check_rwkv6_scan(device, model) -> dict:
+    """Phase 2: rwkv6_scan against its plain version on the inputs of a
+    real full-width prefill and decode step, and on random inputs; times
+    at the prefill and the decode shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import ops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    cfg, params = model
+    worst = [0.0]
+    failed = []
+
+    def check(label, args, real):
+        """Largest |kernel - plain| over o and the state, and its ratio to
+        the tolerance; the state also written over a copy of state0."""
+        s_in = args[5].clone()
+        got_o, got_s = ops.rwkv6_scan_cuda(*args[:5], s_in, state_out=s_in)
+        torch.cuda.synchronize()
+        want = rwkv6_scan_ref(*args)
+        err = ratio = scale = 0.0
+        for got, ref in zip((got_o, got_s), want):
+            top = float(ref.abs().max())
+            tol = max(RWKV_TOL, RWKV_REL_TOL * top) if real else RWKV_TOL
+            e = float((got - ref).abs().max())
+            if not (e <= tol and bool(torch.isfinite(got).all())):
+                failed.append(f"{label}: {e} > {tol}")
+            err, ratio, scale = max(err, e), max(ratio, e / tol), max(scale,
+                                                                       top)
+        worst[0] = max(worst[0], err)
+        return err, ratio, scale
+
+    prompt = np.random.default_rng(SEED + 1).integers(
+        2, cfg.vocab_size, RWKV_CHECK_SEQ).astype(np.int32)
+    prefill = capture_scans(cfg, params, device, [prompt], 1,
+                            lambda r: r.shape[2] > 1)
+    decode_prompts = [r.prompt for r in serve_requests(cfg)[:SERVE_SLOTS]]
+    decode = capture_scans(cfg, params, device, decode_prompts, 2,
+                           lambda r: r.shape[2] == 1)
+    for name, calls in (("prefill", prefill), ("decode", decode)):
+        if len(calls) != cfg.num_layers:
+            raise AssertionError(f"a {name} made {len(calls)} scans, not "
+                                 f"{cfg.num_layers}")
+    for name, calls in (
+            (f"a full-width {RWKV_CHECK_SEQ}-token prefill", prefill),
+            (f"a full-width decode step at {SERVE_SLOTS} slots", decode)):
+        res = [check(f"{name}, layer {i}", a, real=True)
+               for i, a in enumerate(calls)]
+        print(f"rwkv6_scan: the {len(res)} layers of {name} (r "
+              f"{tuple(calls[0][0].shape)}, strides {calls[0][0].stride()}): "
+              f"max_abs_err {max(e for e, _, _ in res)}, at most "
+              f"{max(q for _, q, _ in res)} of the tolerance; largest "
+              f"|reference value| {max(m for _, _, m in res)}")
+    for D in ops.HEAD_DIMS:
+        for B, H in ((1, 1), (2, 3), (8, 32)):
+            for S in (1, 7, 63, 64, 65, 1000):
+                e, q, _ = check(f"random B={B} H={H} S={S} hd={D}",
+                                random_scan(B, H, S, D, S + D + B * H,
+                                            device), real=False)
+                print(f"rwkv6_scan: random B={B} H={H} S={S} hd={D}: "
+                      f"max_abs_err {e}, {q} of the tolerance")
+    for S in (64, 128, 96):
+        for D in (16, 64):
+            e, q, _ = check(f"test_kernels S={S} hd={D}",
+                            random_scan(2, 3, S, D, S + D, device,
+                                        views=False), real=False)
+            print(f"rwkv6_scan: test_kernels shape B=2 H=3 S={S} hd={D}: "
+                  f"max_abs_err {e}, {q} of the tolerance")
+    if failed:
+        raise AssertionError("rwkv6_scan disagrees with its plain version: "
+                             + "; ".join(failed))
+
+    def timed(label, args, repeats, plain_repeats, samples):
+        ms = graph_ms(lambda: ops.rwkv6_scan_cuda(*args), repeats=repeats,
+                      samples=samples)
+        plain_ms = graph_ms(lambda: rwkv6_scan_ref(*args),
+                            repeats=plain_repeats, samples=samples)
+        bound_ms, bound_by = scan_bound(args[0])
+        print(f"rwkv6_scan device time, {label} (r "
+              f"{tuple(args[0].shape)}): kernel {ms:.6f} ms, plain "
+              f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
+              f"kernel at {bound_ms / ms:.4f} of its bound")
+        return ms, plain_ms, bound_ms, bound_by
+
+    ms, plain_ms, bound_ms, bound_by = timed(
+        f"layer 0 of the {RWKV_CHECK_SEQ}-token prefill", prefill[0], 20, 1,
+        5)
+    timed(f"layer 0 of the decode step at {SERVE_SLOTS} slots", decode[0],
+          100, 100, 21)
+    print(f"rwkv6_scan eager (host-issued) at the decode step: kernel "
+          f"wrapper {eager_ms(lambda: ops.rwkv6_scan_cuda(*decode[0])):.6f} "
+          f"ms, plain {eager_ms(lambda: rwkv6_scan_ref(*decode[0])):.6f} ms")
+    return dict(
+        name="rwkv6_scan",
+        route="cuda",
+        source="src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan/kernel.py:54",
+        launches=0,
+        max_abs_err=worst[0],
+        ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by=bound_by,
+        library_ms=None,
+    )
+
+
 def replay_goldens(device) -> None:
     """Phase 3: the golden fixtures, bit-exactly, on ``device``."""
     from repro_torch.core.engine import EngineConfig, run_simulation
@@ -822,10 +1039,12 @@ def reset_launches() -> None:
     from repro_torch.kernels.dep_wavefront import ops as dw_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.lock_grant import ops as lg_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 
     lg_ops.launches = 0
     dw_ops.launches = 0
     fa_ops.launches = 0
+    rw_ops.launches = 0
 
 
 def main_path_slice1(device) -> int:
@@ -914,8 +1133,9 @@ def serve_requests(cfg):
             for i, n in enumerate(lens)]
 
 
-def serve_run(model, device, kernel_impl):
-    """One whole serving run: (engine, answered requests, wall s)."""
+def serve_run(model, device, kernel_impl, n_requests=SERVE_REQUESTS):
+    """One whole serving run of the first ``n_requests`` requests:
+    (engine, answered requests, wall s)."""
     import torch
 
     from repro_torch.serve import ServeConfig, ServingEngine
@@ -924,7 +1144,7 @@ def serve_run(model, device, kernel_impl):
     eng = ServingEngine(cfg, ServeConfig(batch_slots=SERVE_SLOTS,
                                          cache_len=SERVE_CACHE_LEN),
                         params, device=device, kernel_impl=kernel_impl)
-    reqs = serve_requests(cfg)
+    reqs = serve_requests(cfg)[:n_requests]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = eng.run(reqs)
@@ -932,17 +1152,19 @@ def serve_run(model, device, kernel_impl):
     return eng, done, time.perf_counter() - t0
 
 
-def first_token_logits(model, device, outputs) -> None:
-    """Each request's prefill logits on the kernel and the plain path: the
-    largest difference, held to FIRST_LOGIT_TOL, and each path's argmax
-    equal to the first token its engine run gave."""
+def first_token_logits(model, device, outputs, tol=FIRST_LOGIT_TOL,
+                       n_requests=SERVE_REQUESTS) -> None:
+    """The first ``n_requests`` requests' prefill logits on the kernel and
+    the plain path: the largest difference, held to ``tol``, and each
+    path's argmax equal to the first token its engine run gave."""
     import torch
 
     from repro_torch.models import model as M
 
     cfg, params = model
     worst = scale = 0.0
-    for req in serve_requests(cfg):
+    same = 0
+    for req in serve_requests(cfg)[:n_requests]:
         prompt = torch.as_tensor(req.prompt, dtype=torch.long,
                                  device=device)[None]
         logits = {}
@@ -959,18 +1181,20 @@ def first_token_logits(model, device, outputs) -> None:
             logits[impl] = lg
         worst = max(worst, float((logits["auto"] - logits["jnp"]).abs().max()))
         scale = max(scale, float(logits["jnp"].abs().max()))
-    print(f"gemma3-1b first-token logits, kernel vs plain path, over the "
-          f"{SERVE_REQUESTS} prompts: max |difference| {worst} (tolerance "
-          f"{FIRST_LOGIT_TOL}; largest |logit| {scale})")
-    if not worst <= FIRST_LOGIT_TOL:
-        raise AssertionError(f"first-token logits differ by {worst} > "
-                             f"{FIRST_LOGIT_TOL}")
+        same += int(torch.argmax(logits["auto"]) == torch.argmax(logits["jnp"]))
+    print(f"{cfg.name} first-token logits, kernel vs plain path, over the "
+          f"{n_requests} prompts: max |difference| {worst} (tolerance "
+          f"{tol}; largest |logit| {scale}); {same} of {n_requests} first "
+          f"tokens agree")
+    if not worst <= tol:
+        raise AssertionError(f"first-token logits differ by {worst} > {tol}")
 
 
-def profile_serving(model, device, wall_s) -> None:
+def profile_serving(model, device, wall_s, kernel="flash_attention") -> None:
     """The kernel path's serving run again under torch.profiler (CUDA
-    activity only: about 210,000 kernels): CUDA kernels, device seconds,
-    and the device busy share against the unprofiled run's wall time."""
+    activity only: about 210,000 kernels for gemma3-1b): CUDA kernels,
+    device seconds, ``kernel``'s share of them, and the device busy share
+    against the unprofiled run's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -978,41 +1202,49 @@ def profile_serving(model, device, wall_s) -> None:
         _eng, _done, prof_wall = serve_run(model, device, "auto")
     t0 = time.time()
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    print(f"profile gemma3-1b serving: the trace read in "
+    name = model[0].name
+    print(f"profile {name} serving: the trace read in "
           f"{time.time() - t0:.3f} s")
     n_kernels = sum(e.count for e in kern)
     dev_s = sum(e.self_device_time_total for e in kern) / 1e6
-    fa_s = sum(e.self_device_time_total for e in kern
-               if "flash_attention_kernel" in e.key) / 1e6
-    if n_kernels <= 0 or fa_s <= 0:
-        raise AssertionError("the profiler saw no CUDA kernel or no "
-                             "flash_attention kernel")
+    k_s = sum(e.self_device_time_total for e in kern
+              if f"{kernel}_kernel" in e.key) / 1e6
+    if n_kernels <= 0 or k_s <= 0:
+        raise AssertionError(f"the profiler saw no CUDA kernel or no "
+                             f"{kernel} kernel")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profile gemma3-1b serving, kernel path: {n_kernels} CUDA "
+    print(f"profile {name} serving, kernel path: {n_kernels} CUDA "
           f"kernels, device {dev_s:.4f} s against {wall_s:.4f} s wall "
           f"unprofiled ({prof_wall:.4f} s under the profiler): device busy "
-          f"share {dev_s / wall_s:.4f}; flash_attention {fa_s:.4f} s "
-          f"({fa_s / dev_s:.4f} of device time); top kernels: "
+          f"share {dev_s / wall_s:.4f}; {kernel} {k_s:.4f} s "
+          f"({k_s / dev_s:.4f} of device time); top kernels: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
                       for e in top))
 
 
-def main_path_slice3(device, model) -> int:
-    """Phase 6: gemma3-1b serving at full width through ServingEngine, on
-    the kernel and the plain path. Returns the flash_attention launches
-    of the kernel path's run."""
-    from repro_torch.kernels.flash_attention import ops
+def serve_both_paths(model, device, kernel, launches_per, n_plain,
+                     logit_tol) -> int:
+    """One model's serving cell through ServingEngine at full width: all
+    requests on the kernel path, the first ``n_plain`` on the plain path;
+    ``kernel``'s launches = ``launches_per(stats)`` on the kernel path and
+    0 on the plain one, and no other serving kernel launched; first-token
+    logits held to ``logit_tol``; a profile of the kernel path. Returns
+    ``kernel``'s launches of the kernel path's run."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 
     cfg, _params = model
+    counts = {"flash_attention": fa_ops, "rwkv6_scan": rw_ops}
     outputs, walls, launches = {}, {}, {}
-    for impl in ("auto", "jnp"):
+    for impl, n_req in (("auto", SERVE_REQUESTS), ("jnp", n_plain)):
         reset_launches()
-        eng, done, wall = serve_run(model, device, impl)
-        launches[impl] = ops.launches
+        eng, done, wall = serve_run(model, device, impl, n_req)
+        launches[impl] = counts[kernel].launches
+        others = {k: m.launches for k, m in counts.items() if k != kernel}
         st = eng.stats
         n_tok = sum(len(r.output) for r in done)
-        print(f"gemma3-1b serving kernel_impl={impl}: {len(done)} of "
-              f"{SERVE_REQUESTS} requests answered, {n_tok} tokens in "
+        print(f"{cfg.name} serving kernel_impl={impl}: {len(done)} of "
+              f"{n_req} requests answered, {n_tok} tokens in "
               f"{wall:.3f} s ({n_tok / wall:.2f} tokens/s); prefill "
               f"{st['prefill_s'] / st['prefills'] * 1e3:.3f} ms per request "
               f"({st['prefills']} prompts of {SERVE_PROMPT_LENS[0]}-"
@@ -1020,14 +1252,14 @@ def main_path_slice3(device, model) -> int:
               f"{sum(len(r.prompt) for r in done)} in all), decode "
               f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms per step "
               f"({st['decode_steps']} steps of {SERVE_SLOTS} slots); "
-              f"flash_attention launches {launches[impl]}")
-        want = cfg.num_layers * st["prefills"] if impl == "auto" else 0
-        if (len(done) != SERVE_REQUESTS or st["prefills"] != SERVE_REQUESTS
-                or launches[impl] != want):
-            raise AssertionError(f"kernel_impl={impl}: {len(done)} answered, "
-                                 f"{st['prefills']} prefills, "
-                                 f"{launches[impl]} flash_attention launches "
-                                 f"(want {want})")
+              f"{kernel} launches {launches[impl]}; other kernels {others}")
+        want = launches_per(st) if impl == "auto" else 0
+        if (len(done) != n_req or st["prefills"] != n_req
+                or launches[impl] != want or any(others.values())):
+            raise AssertionError(f"{cfg.name} kernel_impl={impl}: "
+                                 f"{len(done)} answered, {st['prefills']} "
+                                 f"prefills, {launches[impl]} {kernel} "
+                                 f"launches (want {want}), others {others}")
         for r in done:
             if not (1 <= len(r.output) <= SERVE_NEW_TOKENS and all(
                     0 <= t < cfg.vocab_size for t in r.output)):
@@ -1035,14 +1267,76 @@ def main_path_slice3(device, model) -> int:
         outputs[impl] = {r.rid: r.output for r in done}
         walls[impl] = wall
     k, j = outputs["auto"], outputs["jnp"]
-    same = sum(a == b for rid in k for a, b in zip(k[rid], j[rid]))
-    print(f"gemma3-1b serving, kernel vs plain path tokens: {same} of "
-          f"{sum(len(v) for v in k.values())} positions agree; "
-          f"{sum(k[rid][0] == j[rid][0] for rid in k)} of {len(k)} first "
-          f"tokens; {sum(k[rid] == j[rid] for rid in k)} whole outputs")
-    first_token_logits(model, device, outputs)
-    profile_serving(model, device, walls["auto"])
+    same = sum(a == b for rid in j for a, b in zip(k[rid], j[rid]))
+    print(f"{cfg.name} serving, kernel vs plain path tokens over the "
+          f"{n_plain} requests both served: {same} of "
+          f"{sum(len(j[rid]) for rid in j)} positions agree; "
+          f"{sum(k[rid][0] == j[rid][0] for rid in j)} of {len(j)} first "
+          f"tokens; {sum(k[rid] == j[rid] for rid in j)} whole outputs")
+    first_token_logits(model, device, outputs, logit_tol, n_plain)
+    profile_serving(model, device, walls["auto"], kernel)
     return launches["auto"]
+
+
+def main_path_slice3(device, model) -> int:
+    """Phase 6: gemma3-1b serving at full width through ServingEngine, on
+    the kernel and the plain path (all requests on both); flash_attention
+    launched once per layer of every prefill. Returns its launches."""
+    return serve_both_paths(
+        model, device, "flash_attention",
+        lambda st: model[0].num_layers * st["prefills"], SERVE_REQUESTS,
+        FIRST_LOGIT_TOL)
+
+
+def scan_rounding_sensitivity(model, device, n_requests) -> None:
+    """How far the first ``n_requests`` requests' first-token logits move
+    on the kernel path when only the scan's outputs move by RWKV_NUDGE
+    relative (Gaussian, from SEED): the size of the difference that
+    another order of the f32 sums can make. Printed beside the first-token
+    check; checks nothing itself."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+
+    cfg, params = model
+    original = ssm.rwkv6_scan
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+
+    def nudged(*args, **kw):
+        o, state = original(*args, **kw)
+        noise = torch.randn(o.shape, generator=gen, device=o.device)
+        return o * (1 + RWKV_NUDGE * noise), state
+
+    worst = 0.0
+    for req in serve_requests(cfg)[:n_requests]:
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device=device)[None]
+        base, _ = M.prefill(params, cfg, prompt, kernel_impl="auto")
+        ssm.rwkv6_scan = nudged
+        try:
+            moved, _ = M.prefill(params, cfg, prompt, kernel_impl="auto")
+        finally:
+            ssm.rwkv6_scan = original
+        worst = max(worst, float((base[0, -1].float()
+                                  - moved[0, -1].float()).abs().max()))
+    print(f"{cfg.name} first-token logits, kernel path against itself with "
+          f"the scan's outputs moved by {RWKV_NUDGE} relative, over the "
+          f"{n_requests} prompts: max |difference| {worst}")
+
+
+def main_path_slice4(device, model) -> int:
+    """Phase 7: rwkv6-1.6b serving at full width through ServingEngine,
+    all requests on the kernel path and the first RWKV_PLAIN_REQUESTS on
+    the plain path; rwkv6_scan launched once per layer of every prefill
+    and of every decode step. Returns its launches."""
+    scan_rounding_sensitivity(model, device, RWKV_PLAIN_REQUESTS)
+    return serve_both_paths(
+        model, device, "rwkv6_scan",
+        lambda st: model[0].num_layers * (st["prefills"]
+                                          + st["decode_steps"]),
+        RWKV_PLAIN_REQUESTS, RWKV_FIRST_LOGIT_TOL)
 
 
 def profile_steps(name, eng_kw, workload, device, warm: int = 100,
@@ -1118,15 +1412,18 @@ def build_kernels() -> None:
     from repro_torch.kernels.dep_wavefront import ops as dw_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.lock_grant import ops as lg_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 
     t0 = time.time()
     with ThreadPoolExecutor() as pool:
-        for f in [pool.submit(o._library) for o in (lg_ops, dw_ops, fa_ops)]:
+        for f in [pool.submit(o._library)
+                  for o in (lg_ops, dw_ops, fa_ops, rw_ops)]:
             f.result()
-    for name in ("lock_grant", "dep_wavefront", "flash_attention"):
+    for name in ("lock_grant", "dep_wavefront", "flash_attention",
+                 "rwkv6_scan"):
         secs, log = _build.BUILD_LOG.get(name, (0.0, "(cached)"))
         print(f"build: {name}.cu in {secs:.3f} s\n{log.strip()}")
-    print(f"build: all three kernels built and loaded in "
+    print(f"build: all four kernels built and loaded in "
           f"{time.time() - t0:.3f} s")
 
 
@@ -1159,11 +1456,13 @@ def main() -> int:
         return out
 
     phase("build", build_kernels)
-    model = phase("model: gemma3-1b", gemma_model, device)
+    model = phase("model: gemma3-1b", full_model, "gemma3-1b", device)
+    rwkv = phase("model: rwkv6-1.6b", full_model, "rwkv6-1.6b", device)
     rows = [phase("kernels: lock_grant", check_lock_grant, device),
             phase("kernels: dep_wavefront", check_dep_wavefront, device),
             phase("kernels: flash_attention", check_flash_attention, device,
-                  model)]
+                  model),
+            phase("kernels: rwkv6_scan", check_rwkv6_scan, device, rwkv)]
     phase("goldens", replay_goldens, device)
     rows[0]["launches"] = phase("main path, slice 1", main_path_slice1,
                                 device)
@@ -1171,6 +1470,8 @@ def main() -> int:
                                 device)
     rows[2]["launches"] = phase("main path, slice 3", main_path_slice3,
                                 device, model)
+    rows[3]["launches"] = phase("main path, slice 4", main_path_slice4,
+                                device, rwkv)
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -2,7 +2,7 @@
 
 ``get_config(name)`` returns the full published configuration;
 ``get_smoke_config(name)`` a reduced same-family config for CPU tests.
-Only gemma3-1b is carried so far; the other archs raise
+Only gemma3-1b and rwkv6-1.6b are carried so far; the other archs raise
 ``NotImplementedError`` naming their slice.
 """
 

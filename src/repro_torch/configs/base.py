@@ -184,12 +184,12 @@ ARCHS = (
 # architectures whose config module the port carries
 _MODULES = {
     "gemma3-1b": "gemma3_1b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 _LATER = "a later slice of the LM substrate (ROADMAP Queue 1, item 13)"
 # the slice that brings each of the others
 UNPORTED = {
-    "rwkv6-1.6b": "slice 4 (rwkv6-1.6b serving, the rwkv6_scan kernel)",
     "mixtral-8x22b": "slice 5 (a MoE path, the moe_dispatch kernel)",
     "llama4-maverick-400b-a17b": "slice 5 (a MoE path, the moe_dispatch kernel)",
     "qwen3-32b": _LATER,

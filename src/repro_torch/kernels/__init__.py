@@ -11,6 +11,8 @@ Each kernel directory has:
                   readiness scan: dgcc, quecc, scheduled)
   flash_attention — online-softmax attention forward, causal / sliding
                   window / chunked (the models' prefill attention)
+  rwkv6_scan    — the RWKV6 WKV recurrence over time (rwkv6's time mix,
+                  in prefill and in every decode step)
 
 A wrapper launches its kernel for a CUDA tensor and raises if it cannot;
 it runs the plain version only for a tensor that lies on the CPU.
@@ -26,7 +28,7 @@ KERNEL_IMPLS = ("auto", "jnp", "pallas")
 def use_kernel(kernel_impl: str, device: torch.device | str) -> bool:
     """Whether the engine or the model goes through a kernel's wrapper
     for tensors on ``device`` (``EngineConfig.kernel_impl``; the
-    ``kernel_impl`` of ``prefill`` and ``ServingEngine``).
+    ``kernel_impl`` of ``prefill``, ``decode_step`` and ``ServingEngine``).
 
     "jnp" never does: the caller runs its plain PyTorch formulation.
     "pallas" always does: the wrapper launches the CUDA kernel for a

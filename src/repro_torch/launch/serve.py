@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.serve              # smoke, GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke --slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
 ``--smoke`` (the default) runs the arch's reduced config, ``--no-smoke``
 its full published config. Weights are random, from ``--seed``, and so
@@ -18,6 +19,7 @@ import numpy as np
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 from repro_torch.models import model as M
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 
@@ -53,7 +55,7 @@ def main(argv=None) -> int:
         )
         for i in range(args.requests)
     ]
-    fa_ops.launches = 0
+    fa_ops.launches = rw_ops.launches = 0
     t0 = time.perf_counter()
     done = engine.run(reqs)
     dt = time.perf_counter() - t0
@@ -67,7 +69,7 @@ def main(argv=None) -> int:
           f"per request ({st['prefills']}), decode "
           f"{st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.3f} ms per "
           f"step ({st['decode_steps']}), flash_attention launches "
-          f"{fa_ops.launches}")
+          f"{fa_ops.launches}, rwkv6_scan launches {rw_ops.launches}")
     return 0
 
 

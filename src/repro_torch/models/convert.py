@@ -4,7 +4,9 @@ The JAX package stacks each pattern position's leaves over the repeats
 (``groups/l{i}`` leaves are [R, ...]) and keeps the tail apart; the port
 keeps one dict per layer in execution order. The einsum layouts are kept
 as they are: ``wq/wk/wv [d, heads, head_dim]``, ``wo [heads, head_dim,
-d]``, MLP ``wi/wg [d, ff]`` and ``wo [ff, d]``.
+d]``, MLP ``wi/wg [d, ff]`` and ``wo [ff, d]``; an rwkv layer's ``tm``,
+``cm``, ``ln_tm`` and ``ln_cm`` trees and its cache (``tm_x``, ``cm_x``,
+``state``) keep their names and layouts too.
 """
 
 from __future__ import annotations

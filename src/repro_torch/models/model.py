@@ -2,9 +2,11 @@
 port of ``repro.models.model``'s serving part).
 
 A cache is a dict: ``pos`` int32[B] and ``layers``, one dict per layer in
-execution order with ``k``/``v`` [B, clen, Nkv, hd] (and ``kpos``
-int32[B, clen] for a ring cache). ``decode_step`` updates it IN PLACE
-and returns it; ``prefill`` builds a new one.
+execution order: an attention layer's ``k``/``v`` [B, clen, Nkv, hd]
+(and ``kpos`` int32[B, clen] for a ring cache), an rwkv layer's
+token-shift rows ``tm_x``/``cm_x`` [B, D] and its time mix's ``state``
+[B, H, hd, hd] f32. ``decode_step`` updates it IN PLACE and returns it;
+``prefill`` builds a new one.
 """
 
 from __future__ import annotations
@@ -27,6 +29,11 @@ def _ring(cfg, spec):
 def _layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch, cache_len):
     """{name: (shape, dtype)} of one layer's decode cache."""
     dt = getattr(torch, cfg.dtype)
+    if spec.mixer == "rwkv":
+        hd = cfg.head_dim
+        return {"tm_x": ((batch, cfg.d_model), dt),
+                "cm_x": ((batch, cfg.d_model), dt),
+                "state": ((batch, cfg.ssm_heads, hd, hd), torch.float32)}
     ring = _ring(cfg, spec)
     clen = min(cache_len, cfg.window) if ring else cache_len
     kv = (batch, clen, cfg.num_kv_heads, cfg.head_dim)
@@ -47,7 +54,8 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
-    """Zero k/v; ``kpos`` -1 (unwritten); ``pos`` 0."""
+    """Zero k/v, token-shift rows and states; ``kpos`` -1 (unwritten);
+    ``pos`` 0."""
     spec = cache_spec(cfg, batch, cache_len)
 
     def mk(shape, dtype):
@@ -74,6 +82,10 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len=None,
                               cache["layers"]):
         x, _, newc = TF.apply_layer(x, p, cfg, spec, want_cache=True,
                                     kernel_impl=kernel_impl)
+        if spec.mixer == "rwkv":
+            for name, t in newc.items():
+                entry[name].copy_(t)
+            continue
         k, v = newc["k"], newc["v"]
         if _ring(cfg, spec):
             take = min(S, entry["k"].shape[1])
@@ -90,8 +102,15 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len=None,
     return logits, cache
 
 
-def _decode_layer(x, p, cfg, spec, entry, pos):
+def _decode_layer(x, p, cfg, spec, entry, pos, kernel_impl):
     """One layer for one token; updates ``entry`` in place."""
+    if spec.mixer == "rwkv":
+        x, newc = TF.rwkv_layer(x, p, cfg, entry["tm_x"], entry["cm_x"],
+                                entry["state"], kernel_impl=kernel_impl,
+                                state_out=entry["state"])
+        entry["tm_x"].copy_(newc["tm_x"])
+        entry["cm_x"].copy_(newc["cm_x"])
+        return x
     h = L.apply_norm(cfg.norm, x, p["ln_attn"])
     o = L.decode_attention(h, p["attn"], TF.attn_spec(cfg, spec), entry["k"],
                            entry["v"], pos, ring=_ring(cfg, spec),
@@ -101,8 +120,11 @@ def _decode_layer(x, p, cfg, spec, entry, pos):
     return x + o
 
 
-def decode_step(params, cfg: ModelConfig, cache, token):
+def decode_step(params, cfg: ModelConfig, cache, token, kernel_impl="auto"):
     """One decode step for the whole batch. token: int[B,1].
+    ``kernel_impl`` picks kernel B5 for an rwkv layer's step
+    (``repro_torch.kernels.use_kernel``); attention decodes in plain
+    PyTorch.
 
     Returns (logits [B,1,V], cache), the cache updated in place.
     """
@@ -110,7 +132,7 @@ def decode_step(params, cfg: ModelConfig, cache, token):
     x = params["tok_embed"][token]
     for p, spec, entry in zip(params["layers"], TF.layer_specs(cfg),
                               cache["layers"]):
-        x = _decode_layer(x, p, cfg, spec, entry, pos)
+        x = _decode_layer(x, p, cfg, spec, entry, pos, kernel_impl)
     cache["pos"] += 1
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     return TF._lm_head(params, cfg, x), cache

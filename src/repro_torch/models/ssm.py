@@ -1,0 +1,130 @@
+"""Attention-free mixers: the RWKV6 time mix and channel mix (the port of
+the RWKV half of ``repro.models.ssm``).
+
+The time mix is a linear-time recurrence: prefill runs it over the
+prompt and decode runs one step of it, carrying a [B,H,hd,hd] state.
+Both go through kernel B5 (``kernels.rwkv6_scan``, hand-written CUDA)
+where ``use_kernel(kernel_impl, device)`` says so, and otherwise through
+its plain version, the loop over time the JAX package runs as a
+``lax.scan``. The projections, the decay and the norms are plain
+PyTorch, as the JAX package left them to XLA. The Mamba head (Hymba's
+branch) comes with a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import use_kernel
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+from repro_torch.models.layers import normal, rmsnorm
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 ("Finch") time mix with data-dependent decay
+# ---------------------------------------------------------------------------
+def init_rwkv_timemix(d, n_heads, head_dim, dtype, device, gen, lora_dim=64):
+    s = 1.0 / math.sqrt(d)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    def rand(shape, scale):
+        return normal(shape, scale, dtype, device, gen)
+
+    return {
+        "mix_r": full((d,), 0.5),
+        "mix_k": full((d,), 0.5),
+        "mix_v": full((d,), 0.5),
+        "mix_g": full((d,), 0.5),
+        "mix_w": full((d,), 0.5),
+        "wr": rand((d, n_heads, head_dim), s),
+        "wk": rand((d, n_heads, head_dim), s),
+        "wv": rand((d, n_heads, head_dim), s),
+        "wg": rand((d, n_heads, head_dim), s),
+        # data-dependent decay: w = exp(-exp(w0 + tanh(x A) B))
+        "w0": full((n_heads, head_dim), -6.0),
+        "wa": rand((d, lora_dim), s),
+        "wb": rand((lora_dim, n_heads, head_dim), 1.0 / math.sqrt(lora_dim)),
+        "u": rand((n_heads, head_dim), 0.1),
+        "wo": rand((n_heads, head_dim, d), 1.0 / math.sqrt(n_heads * head_dim)),
+        "ln_x": torch.ones(n_heads * head_dim, dtype=dtype, device=device),
+    }
+
+
+def _shifted(x, x_prev):
+    """x shifted one step right in time, ``x_prev`` [B,D] in front."""
+    return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _rwkv_inputs(x, x_prev, p):
+    """Token-shift mixing + projections. x: [B,S,D]; x_prev: [B,D].
+    Returns r, k, v, g [B,S,H,hd] in x's type and the decay [B,S,H,hd]
+    in f32."""
+    shifted = _shifted(x, x_prev)
+
+    def mx(m):
+        return x + (shifted - x) * m
+
+    r = torch.einsum("bsd,dnh->bsnh", mx(p["mix_r"]), p["wr"])
+    k = torch.einsum("bsd,dnh->bsnh", mx(p["mix_k"]), p["wk"])
+    v = torch.einsum("bsd,dnh->bsnh", mx(p["mix_v"]), p["wv"])
+    g = torch.einsum("bsd,dnh->bsnh", mx(p["mix_g"]), p["wg"])
+    lo = torch.tanh(torch.einsum("bsd,dl->bsl", mx(p["mix_w"]), p["wa"]))
+    # w0 + lora in the model's type, then f32 for exp(-exp(.))
+    wdec = torch.exp(-torch.exp(
+        (p["w0"][None, None] + torch.einsum("bsl,lnh->bsnh", lo, p["wb"]))
+        .float()))
+    return r, k, v, g, wdec
+
+
+def rwkv_timemix(x, x_prev, state, p, kernel_impl="auto", state_out=None):
+    """RWKV6 WKV recurrence.
+
+    x: [B,S,D]; x_prev: [B,D] (the last token before x); state:
+    [B,H,hd,hd] f32 (key x value outer-product state). Returns (out
+    [B,S,D], new x_prev [B,D], new state). With ``state_out`` the new
+    state is written there (it may be ``state`` itself) and returned.
+    ``kernel_impl`` picks kernel B5 or its plain version
+    (``repro_torch.kernels.use_kernel``).
+    """
+    B, S, _ = x.shape
+    H, HD = p["u"].shape
+    r, k, v, g, wdec = _rwkv_inputs(x, x_prev, p)
+    # f32 for the scan, as [B,H,S,hd] views of [B,S,H,hd] tensors
+    r, k, v, wdec = (a.float().contiguous().transpose(1, 2)
+                     for a in (r, k, v, wdec))
+    u = p["u"].float()
+    if use_kernel(kernel_impl, x.device):
+        o, state = rwkv6_scan(r, k, v, wdec, u, state, state_out=state_out)
+    else:
+        o, state = rwkv6_scan_ref(r, k, v, wdec, u, state)
+        if state_out is not None:
+            state = state_out.copy_(state)
+    out = o.transpose(1, 2).reshape(B, S, H * HD)
+    out = rmsnorm(out, p["ln_x"]).to(x.dtype)
+    out = out * F.silu(g.reshape(B, S, H * HD))
+    out = torch.einsum("bsnh,nhd->bsd", out.reshape(B, S, H, HD), p["wo"])
+    return out, x[:, -1, :], state
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 channel mix (squared ReLU)
+# ---------------------------------------------------------------------------
+def init_rwkv_channelmix(d, ff, dtype, device, gen):
+    return {
+        "mix_k": torch.full((d,), 0.5, dtype=dtype, device=device),
+        "wk": normal((d, ff), 1.0 / math.sqrt(d), dtype, device, gen),
+        "wv": normal((ff, d), 1.0 / math.sqrt(ff), dtype, device, gen),
+    }
+
+
+def rwkv_channelmix(x, x_prev, p):
+    """x: [B,S,D]; x_prev: [B,D]. Returns (out [B,S,D], new x_prev)."""
+    xk = x + (_shifted(x, x_prev) - x) * p["mix_k"]
+    h = torch.square(F.relu(xk @ p["wk"]))
+    return h @ p["wv"], x[:, -1, :]

@@ -1,5 +1,5 @@
 """Layer blocks and whole-model assembly, for the attention mixer with a
-dense MLP (the port of ``repro.models.transformer``).
+dense MLP and the rwkv mixer (the port of ``repro.models.transformer``).
 
 The JAX package stacks each pattern position's weights over
 ``pattern_repeats`` and scans them; the port keeps one plain dict of
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 _LATER = "a later slice of the LM substrate (ROADMAP Queue 1, item 13)"
 
@@ -25,11 +26,9 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot build yet."""
     unported = []
     for spec in cfg.pattern + cfg.tail:
-        if spec.mixer == "rwkv":
-            unported.append(("the rwkv mixer", "slice 4 (rwkv6-1.6b serving)"))
-        elif spec.mixer == "hybrid":
+        if spec.mixer == "hybrid":
             unported.append(("the hybrid mixer", _LATER))
-        elif spec.attn_kind == "none":
+        elif spec.attn_kind == "none" and spec.mixer != "rwkv":
             unported.append(("attn_kind 'none'", _LATER))
         if spec.is_moe:
             unported.append(("MoE layers", "slice 5 (a MoE path)"))
@@ -75,6 +74,14 @@ def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> L.AttnSpec:
 def init_layer(cfg: ModelConfig, spec: LayerSpec, device, gen):
     dt = getattr(torch, cfg.dtype)
     d = cfg.d_model
+    if spec.mixer == "rwkv":
+        return {
+            "ln_tm": L.init_norm(cfg.norm, d, dt, device),
+            "tm": S.init_rwkv_timemix(d, cfg.ssm_heads, cfg.head_dim, dt,
+                                      device, gen),
+            "ln_cm": L.init_norm(cfg.norm, d, dt, device),
+            "cm": S.init_rwkv_channelmix(d, cfg.d_ff, dt, device, gen),
+        }
     return {
         "ln_attn": L.init_norm(cfg.norm, d, dt, device),
         "attn": L.init_attn(d, attn_spec(cfg, spec), dt, device, gen),
@@ -91,9 +98,32 @@ def _mlp_or_moe(x, p, cfg, spec):
     return L.apply_mlp(cfg.mlp, h, p["mlp"]), 0.0
 
 
+def rwkv_layer(x, p, cfg, tm_x, cm_x, state, *, kernel_impl="auto",
+               state_out=None):
+    """An rwkv layer (time mix, then channel mix) over x [B,S,D] from the
+    token-shift rows ``tm_x``/``cm_x`` [B,D] and the time mix's state.
+    Returns (x, {"tm_x", "cm_x", "state"} after x); ``state_out`` as in
+    ``ssm.rwkv_timemix``."""
+    h = L.apply_norm(cfg.norm, x, p["ln_tm"])
+    o, tmx, st = S.rwkv_timemix(h, tm_x, state, p["tm"],
+                                kernel_impl=kernel_impl, state_out=state_out)
+    x = x + o
+    h = L.apply_norm(cfg.norm, x, p["ln_cm"])
+    o, cmx = S.rwkv_channelmix(h, cm_x, p["cm"])
+    return x + o, {"tm_x": tmx, "cm_x": cmx, "state": st}
+
+
 def apply_layer(x, p, cfg, spec, *, want_cache=False, kernel_impl="auto"):
-    """One layer over the whole sequence. Returns (x, aux, cache entry or
-    None); the entry holds this layer's k and v [B,S,Nkv,hd]."""
+    """One layer over the whole sequence, from an empty cache. Returns (x,
+    aux, cache entry or None); the entry holds an attention layer's k and
+    v [B,S,Nkv,hd], an rwkv layer's ``tm_x``, ``cm_x`` and ``state``."""
+    if spec.mixer == "rwkv":
+        B = x.shape[0]
+        z = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
+        st0 = torch.zeros((B, cfg.ssm_heads, cfg.head_dim, cfg.head_dim),
+                          dtype=torch.float32, device=x.device)
+        x, newc = rwkv_layer(x, p, cfg, z, z, st0, kernel_impl=kernel_impl)
+        return x, 0.0, (newc if want_cache else None)
     h = L.apply_norm(cfg.norm, x, p["ln_attn"])
     o, (k, v) = L.self_attention(h, p["attn"], attn_spec(cfg, spec),
                                  kernel_impl=kernel_impl)

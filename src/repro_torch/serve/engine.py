@@ -7,7 +7,9 @@ the planner hands the executor an explicit plan (slot ids, token
 buffers). The decode step runs over the whole slot batch with per-slot
 activity masked on the host, so shapes never change as requests come
 and go. The cache is updated in place: a prefilled request's cache is
-copied into its slot's rows, and each decode step writes one position.
+copied into its slot's rows, and each decode step writes one position
+(an attention layer) or its slot's token-shift rows and state (an rwkv
+layer).
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ class ServeConfig:
 
 class ServingEngine:
     """``params`` live on ``device`` (the card unless the caller says
-    ``"cpu"``); ``kernel_impl`` picks kernel B4 for prefill attention
-    (``repro_torch.kernels.use_kernel``). ``stats`` counts prefills and
+    ``"cpu"``); ``kernel_impl`` picks the kernels
+    (``repro_torch.kernels.use_kernel``): B4 for prefill attention, B5 for
+    an rwkv layer's prefill and decode. ``stats`` counts prefills and
     decode steps and their host-clock seconds, each ending in the read of
     its tokens (a device sync)."""
 
@@ -88,7 +91,8 @@ class ServingEngine:
             logits, self.cache = M.decode_step(
                 self.params, self.cfg, self.cache,
                 torch.as_tensor(self.tokens, dtype=torch.long,
-                                device=self.device))
+                                device=self.device),
+                kernel_impl=self.kernel_impl)
             nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
             self.stats["decode_steps"] += 1
             self.stats["decode_s"] += time.perf_counter() - t0

@@ -120,7 +120,7 @@ def test_unported_arch_raises(arch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(pattern=(LayerSpec(mixer="rwkv", attn_kind="none"),)),
+    dict(pattern=(LayerSpec(mixer="attn", attn_kind="none"),)),
     dict(pattern=(LayerSpec(mixer="hybrid"),)),
     dict(pattern=(LayerSpec(is_moe=True),)),
     dict(tail=(LayerSpec(has_cross=True),)),
