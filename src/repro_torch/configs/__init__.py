@@ -2,8 +2,8 @@
 
 ``get_config(name)`` returns the full published configuration;
 ``get_smoke_config(name)`` a reduced same-family config for CPU tests.
-Only gemma3-1b and rwkv6-1.6b are carried so far; the other archs raise
-``NotImplementedError`` naming their slice.
+Only gemma3-1b, rwkv6-1.6b and mixtral-8x22b are carried so far; the
+other archs raise ``NotImplementedError`` naming their slice.
 """
 
 from repro_torch.configs.base import (

@@ -185,13 +185,15 @@ ARCHS = (
 _MODULES = {
     "gemma3-1b": "gemma3_1b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "mixtral-8x22b": "mixtral_8x22b",
 }
 
 _LATER = "a later slice of the LM substrate (ROADMAP Queue 1, item 13)"
 # the slice that brings each of the others
 UNPORTED = {
-    "mixtral-8x22b": "slice 5 (a MoE path, the moe_dispatch kernel)",
-    "llama4-maverick-400b-a17b": "slice 5 (a MoE path, the moe_dispatch kernel)",
+    "llama4-maverick-400b-a17b": (
+        "a later slice (early fusion, chunked + NoPE MoE; one repeat is "
+        "70 GB)"),
     "qwen3-32b": _LATER,
     "stablelm-1.6b": _LATER,
     "starcoder2-3b": _LATER,

@@ -4,10 +4,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke --slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b
 
 ``--smoke`` (the default) runs the arch's reduced config, ``--no-smoke``
-its full published config. Weights are random, from ``--seed``, and so
-are the prompts (4-16 tokens, as the JAX launcher's).
+its full published config, after checking that its weights fit the
+card's free memory (mixtral-8x22b's 281 GB do not: one card serves it
+cut to 8 of its 56 layers, as ``chip_smoke.py`` does). Weights are
+random, from ``--seed``, and so are the prompts (4-16 tokens, as the JAX
+launcher's).
 """
 
 from __future__ import annotations
@@ -16,12 +20,26 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ModelConfig, get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.moe_dispatch import ops as md_ops
 from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 from repro_torch.models import model as M
 from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+
+def check_fits(cfg: ModelConfig, free_bytes: int) -> None:
+    """Raise before allocating if ``cfg``'s weights alone exceed
+    ``free_bytes`` of device memory."""
+    need = cfg.param_count() * getattr(torch, cfg.dtype).itemsize
+    if need > free_bytes:
+        raise RuntimeError(
+            f"{cfg.name}: {need / 1e9:.1f} GB of {cfg.dtype} weights, "
+            f"{free_bytes / 1e9:.1f} GB free on the card: one card cannot "
+            f"hold it; serving it whole comes with the four-card "
+            f"distribution slice (ROADMAP Queue 1, item 11)")
 
 
 def main(argv=None) -> int:
@@ -38,6 +56,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if torch.device(args.device).type == "cuda":
+        check_fits(cfg, torch.cuda.mem_get_info(args.device)[0])
     params = M.init_params(cfg, args.seed, args.device)
     engine = ServingEngine(
         cfg,
@@ -55,7 +75,7 @@ def main(argv=None) -> int:
         )
         for i in range(args.requests)
     ]
-    fa_ops.launches = rw_ops.launches = 0
+    fa_ops.launches = rw_ops.launches = md_ops.launches = 0
     t0 = time.perf_counter()
     done = engine.run(reqs)
     dt = time.perf_counter() - t0
@@ -69,7 +89,8 @@ def main(argv=None) -> int:
           f"per request ({st['prefills']}), decode "
           f"{st['decode_s'] / max(st['decode_steps'], 1) * 1e3:.3f} ms per "
           f"step ({st['decode_steps']}), flash_attention launches "
-          f"{fa_ops.launches}, rwkv6_scan launches {rw_ops.launches}")
+          f"{fa_ops.launches}, rwkv6_scan launches {rw_ops.launches}, "
+          f"moe_dispatch launches {md_ops.launches}")
     return 0
 
 

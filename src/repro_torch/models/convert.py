@@ -6,7 +6,9 @@ keeps one dict per layer in execution order. The einsum layouts are kept
 as they are: ``wq/wk/wv [d, heads, head_dim]``, ``wo [heads, head_dim,
 d]``, MLP ``wi/wg [d, ff]`` and ``wo [ff, d]``; an rwkv layer's ``tm``,
 ``cm``, ``ln_tm`` and ``ln_cm`` trees and its cache (``tm_x``, ``cm_x``,
-``state``) keep their names and layouts too.
+``state``) keep their names and layouts too, and so does a MoE layer's
+``moe`` tree (``router [d, E]`` in f32, ``wi/wg [E, d, ff]``, ``wo [E,
+ff, d]``; [R, E, ...] per pattern position in JAX).
 """
 
 from __future__ import annotations

@@ -116,15 +116,15 @@ def _decode_layer(x, p, cfg, spec, entry, pos, kernel_impl):
                            entry["v"], pos, ring=_ring(cfg, spec),
                            cache_kpos=entry.get("kpos"))
     x = x + o
-    o, _ = TF._mlp_or_moe(x, p, cfg, spec)
+    o, _ = TF._mlp_or_moe(x, p, cfg, spec, kernel_impl)
     return x + o
 
 
 def decode_step(params, cfg: ModelConfig, cache, token, kernel_impl="auto"):
     """One decode step for the whole batch. token: int[B,1].
-    ``kernel_impl`` picks kernel B5 for an rwkv layer's step
-    (``repro_torch.kernels.use_kernel``); attention decodes in plain
-    PyTorch.
+    ``kernel_impl`` picks kernel B5 for an rwkv layer's step and kernel
+    B3 for a MoE layer's dispatch plan (``repro_torch.kernels.use_kernel``);
+    attention decodes in plain PyTorch.
 
     Returns (logits [B,1,V], cache), the cache updated in place.
     """

@@ -1,0 +1,154 @@
+"""Mixture-of-Experts with planned dispatch (the port of
+``repro.models.moe``).
+
+The dispatch plan is computed ahead of any expert compute, in canonical
+(expert id, arrival) order, with a static per-expert capacity: each
+expert runs one [capacity, d] block, tokens past its capacity are
+dropped, and the combine is one scatter-add. The plan's segmented
+position scan is kernel B3 (``kernels.moe_dispatch``, hand-written
+CUDA) where ``use_kernel(kernel_impl, device)`` says so, and otherwise
+``plan_dispatch``, the same plan with B3's plain version. The router,
+the expert products, the gather and the combine are plain PyTorch, as
+the JAX package left them to XLA.
+
+Modes:
+  'planned' — sort-based capacity dispatch (the default).
+  'dense'   — every expert computes every token, mask-combined (exact, no
+              drops); the tests' oracle.
+
+The JAX package's ``weight_gather`` is a sharding constraint with no
+numeric effect on one card: it is accepted and changes nothing.
+``dispatch_shards > 1`` (per-shard plans over a data-parallel mesh)
+raises: it comes with the distribution slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import use_kernel
+from repro_torch.kernels.moe_dispatch import ops as dispatch_ops
+from repro_torch.kernels.moe_dispatch.ops import (
+    moe_dispatch_plan,
+    route,
+    routed_share,
+)
+from repro_torch.models import layers as L
+
+DISTRIBUTION = "the distribution slice (ROADMAP Queue 1, item 11)"
+
+
+def _bank(shape, scale, dtype, device, gen):
+    """N(0, scale^2) weights drawn in ``dtype`` itself: an expert bank at
+    mixtral's width is 1.6 GB in bf16, and no f32 copy of it is made."""
+    w = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+    return w.mul_(scale)
+
+
+def init_moe(d, ff, num_experts, dtype, device, gen, mlp_kind="swiglu",
+             shared_expert=False):
+    """The router [d, E] in f32 whatever ``dtype``; ``wi``/``wg`` [E, d,
+    ff] and ``wo`` [E, ff, d]; an optional shared expert (an MLP)."""
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
+    p = {
+        "router": L.normal((d, num_experts), s_in, torch.float32, device,
+                           gen),
+        "wi": _bank((num_experts, d, ff), s_in, dtype, device, gen),
+        "wo": _bank((num_experts, ff, d), s_out, dtype, device, gen),
+    }
+    if mlp_kind in ("swiglu", "geglu"):
+        p["wg"] = _bank((num_experts, d, ff), s_in, dtype, device, gen)
+    if shared_expert:
+        p["shared"] = L.init_mlp(mlp_kind, d, ff, dtype, device, gen)
+    return p
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def _expert_ffn(blocks, p, mlp_kind):
+    """blocks: [E, C, d] -> [E, C, d] through each expert's FFN."""
+    h = torch.bmm(blocks, p["wi"])
+    if mlp_kind == "swiglu":
+        h = F.silu(torch.bmm(blocks, p["wg"])) * h
+    elif mlp_kind == "geglu":
+        h = _gelu(torch.bmm(blocks, p["wg"])) * h
+    else:
+        h = _gelu(h)
+    return torch.bmm(h, p["wo"])
+
+
+def plan_dispatch(router_probs, top_k, capacity):
+    """The plain dispatch plan: ``moe_dispatch_plan`` with B3's plain
+    version in its place, on any device."""
+    return dispatch_ops.moe_dispatch_plan(router_probs, top_k=top_k,
+                                          capacity=capacity, plain=True)
+
+
+def capacity_for(n_tokens, top_k, num_experts, capacity_factor):
+    """The planned mode's static per-expert capacity: ``capacity_factor``
+    times the mean load, truncated, then rounded up to a multiple of 128
+    and at least 128."""
+    cap = int(capacity_factor * n_tokens * top_k / num_experts)
+    return max(128, (cap + 127) // 128 * 128)
+
+
+def apply_moe(x, p, *, top_k, capacity_factor, mlp_kind="swiglu",
+              mode="planned", dispatch_shards: int = 0,
+              weight_gather: bool = False, kernel_impl="auto"):
+    """x: [B,S,D] -> ([B,S,D], the Switch load-balance aux loss).
+
+    The planned mode plans over all N = B*S tokens (a decode step's idle
+    slots included) through kernel B3 or ``plan_dispatch``
+    (``kernel_impl``, as ``repro_torch.kernels.use_kernel`` reads it).
+    """
+    del weight_gather  # a sharding constraint: nothing to do on one card
+    if dispatch_shards > 1:
+        raise NotImplementedError(
+            f"per-shard MoE dispatch (dispatch_shards={dispatch_shards}) is "
+            f"not ported yet; it comes with {DISTRIBUTION}")
+    B, S, D = x.shape
+    N = B * S
+    E = p["router"].shape[1]
+    xf = x.reshape(N, D)
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+
+    if mode == "dense":
+        w, eidx = route(probs, top_k)
+        gate = torch.zeros((N, E), dtype=torch.float32, device=x.device)
+        gate.scatter_(1, eidx, w)
+        h = torch.einsum("nd,edf->enf", xf, p["wi"])
+        if mlp_kind in ("swiglu", "geglu"):
+            act = F.silu if mlp_kind == "swiglu" else _gelu
+            h = act(torch.einsum("nd,edf->enf", xf, p["wg"])) * h
+        else:
+            h = _gelu(h)
+        y = torch.einsum("enf,efd->end", h, p["wo"])
+        out = torch.einsum("end,ne->nd", y, gate.to(y.dtype))
+        load = routed_share(eidx, E)
+    else:
+        cap = capacity_for(N, top_k, E, capacity_factor)
+        planner = (moe_dispatch_plan if use_kernel(kernel_impl, x.device)
+                   else plan_dispatch)
+        plan = planner(probs, top_k=top_k, capacity=cap)
+        st = plan["slot_token"]
+        valid = st >= 0
+        gathered = xf[st.clamp(min=0)]
+        gathered = torch.where(valid[:, None], gathered, 0).reshape(E, cap, D)
+        y = _expert_ffn(gathered, p, mlp_kind).reshape(E * cap, D)
+        y = y * plan["slot_weight"][:, None].to(y.dtype)
+        # the combine: empty slots land on the extra row N, sliced off
+        out = torch.zeros((N + 1, D), dtype=y.dtype, device=x.device)
+        out.index_add_(0, torch.where(valid, st, N), y)
+        out = out[:N]
+        load = plan["load"]  # = the Switch loss's routed share per expert
+
+    if "shared" in p:
+        out = out + L.apply_mlp(mlp_kind, xf, p["shared"])
+
+    aux = E * torch.sum(probs.mean(dim=0) * load)
+    return out.reshape(B, S, D), aux

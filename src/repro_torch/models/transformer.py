@@ -1,5 +1,6 @@
 """Layer blocks and whole-model assembly, for the attention mixer with a
-dense MLP and the rwkv mixer (the port of ``repro.models.transformer``).
+dense MLP or a MoE FFN and the rwkv mixer (the port of
+``repro.models.transformer``).
 
 The JAX package stacks each pattern position's weights over
 ``pattern_repeats`` and scans them; the port keeps one plain dict of
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 
 _LATER = "a later slice of the LM substrate (ROADMAP Queue 1, item 13)"
@@ -30,10 +32,12 @@ def check_ported(cfg: ModelConfig) -> None:
             unported.append(("the hybrid mixer", _LATER))
         elif spec.attn_kind == "none" and spec.mixer != "rwkv":
             unported.append(("attn_kind 'none'", _LATER))
-        if spec.is_moe:
-            unported.append(("MoE layers", "slice 5 (a MoE path)"))
         if spec.has_cross:
             unported.append(("cross-attention", _LATER))
+    if cfg.moe_dispatch_shards > 1 and any(
+            s.is_moe for s in cfg.pattern + cfg.tail):
+        unported.append(("per-shard MoE dispatch (moe_dispatch_shards > 1)",
+                         MOE.DISTRIBUTION))
     if cfg.encoder_layers:
         unported.append(("the encoder", _LATER))
     if cfg.pos_embedding == "learned":
@@ -82,19 +86,33 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, device, gen):
             "ln_cm": L.init_norm(cfg.norm, d, dt, device),
             "cm": S.init_rwkv_channelmix(d, cfg.d_ff, dt, device, gen),
         }
-    return {
+    p = {
         "ln_attn": L.init_norm(cfg.norm, d, dt, device),
         "attn": L.init_attn(d, attn_spec(cfg, spec), dt, device, gen),
         "ln_mlp": L.init_norm(cfg.norm, d, dt, device),
-        "mlp": L.init_mlp(cfg.mlp, d, cfg.d_ff, dt, device, gen),
     }
+    if spec.is_moe:
+        p["moe"] = MOE.init_moe(
+            d, cfg.expert_d_ff or cfg.d_ff, cfg.num_experts, dt, device, gen,
+            mlp_kind=cfg.mlp, shared_expert=cfg.moe_shared_expert)
+    else:
+        p["mlp"] = L.init_mlp(cfg.mlp, d, cfg.d_ff, dt, device, gen)
+    return p
 
 
 # ---------------------------------------------------------------------------
 # layer application (full sequence: prefill)
 # ---------------------------------------------------------------------------
-def _mlp_or_moe(x, p, cfg, spec):
+def _mlp_or_moe(x, p, cfg, spec, kernel_impl="auto"):
+    """The FFN half of an attention layer: (out, aux); ``kernel_impl``
+    picks kernel B3 for a MoE layer's dispatch plan."""
     h = L.apply_norm(cfg.norm, x, p["ln_mlp"])
+    if spec.is_moe:
+        return MOE.apply_moe(
+            h, p["moe"], top_k=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor, mlp_kind=cfg.mlp,
+            mode=cfg.moe_mode, dispatch_shards=cfg.moe_dispatch_shards,
+            weight_gather=cfg.moe_weight_gather, kernel_impl=kernel_impl)
     return L.apply_mlp(cfg.mlp, h, p["mlp"]), 0.0
 
 
@@ -128,7 +146,7 @@ def apply_layer(x, p, cfg, spec, *, want_cache=False, kernel_impl="auto"):
     o, (k, v) = L.self_attention(h, p["attn"], attn_spec(cfg, spec),
                                  kernel_impl=kernel_impl)
     x = x + o
-    o, aux = _mlp_or_moe(x, p, cfg, spec)
+    o, aux = _mlp_or_moe(x, p, cfg, spec, kernel_impl)
     return x + o, aux, ({"k": k, "v": v} if want_cache else None)
 
 

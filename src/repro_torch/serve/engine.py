@@ -37,7 +37,8 @@ class ServingEngine:
     """``params`` live on ``device`` (the card unless the caller says
     ``"cpu"``); ``kernel_impl`` picks the kernels
     (``repro_torch.kernels.use_kernel``): B4 for prefill attention, B5 for
-    an rwkv layer's prefill and decode. ``stats`` counts prefills and
+    an rwkv layer's prefill and decode, B3 for a MoE layer's dispatch
+    plan in prefill and decode. ``stats`` counts prefills and
     decode steps and their host-clock seconds, each ending in the read of
     its tokens (a device sync)."""
 

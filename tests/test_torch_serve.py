@@ -122,7 +122,8 @@ def test_unported_arch_raises(arch):
 @pytest.mark.parametrize("change", [
     dict(pattern=(LayerSpec(mixer="attn", attn_kind="none"),)),
     dict(pattern=(LayerSpec(mixer="hybrid"),)),
-    dict(pattern=(LayerSpec(is_moe=True),)),
+    dict(pattern=(LayerSpec(is_moe=True),), num_experts=4,
+         experts_per_token=2, moe_dispatch_shards=2),
     dict(tail=(LayerSpec(has_cross=True),)),
     dict(encoder_layers=2),
     dict(pos_embedding="learned"),
