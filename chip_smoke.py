@@ -7,7 +7,11 @@ Phases (each raises on failure; the script then exits non-zero):
 
   1. build   — compile every CUDA kernel of the paths from this checkout,
                all at once (``nvcc`` for sm_90a, one process per source,
-               into build/repro_torch_kernels/);
+               into build/repro_torch_kernels/; B4 is two libraries, the
+               tensor-core kernel for bf16 and the CUDA-core one for f32);
+               B4's registers, spills (none allowed) and shared memory per
+               template instance, and its HGMMA count, are printed in
+               phase 2;
   2. kernels — hold each kernel bit-equal (integers, tolerance 0) to its
                plain PyTorch version on the card, and time both (CUDA
                graph replays): lock_grant on the entries of a real
@@ -76,8 +80,17 @@ Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
 on the q/k/v of every layer of a real full-width 2,048-token gemma3-1b
 prefill and on random inputs at gemma's shape (S = 7 .. 4,096, every
-kind) and test_kernels.py's, and times it beside its plain version and
-F.scaled_dot_product_attention; and rwkv6_scan to its plain version
+kind) and test_kernels.py's. bf16 runs the tensor-core kernel
+(flash_attention_tc.cu: a producer warp feeds a two-stage K/V ring in
+shared memory with TMA; one consumer warpgroup per query head, two heads
+of a KV head to a block where the launch is work-bound, run S = Q.K^T
+and O += P.V on wgmma with P from registers), f32 the CUDA-core one. At
+gemma's global and swa layers and mixtral's layer 0 it times, in one
+call and in turns, the kernel, the same kernel at one and at two heads a
+block, the earlier CUDA-core design (``ops._flash_attention_simt``),
+the plain version and F.scaled_dot_product_attention (the yardstick),
+beside the bound, and the head packing over prompt lengths; and
+rwkv6_scan to its plain version
 (RWKV_TOL) on all 24 layers of a real full-width 3,000-token rwkv6-1.6b
 prefill, on the 24 layers of a real decode step at 8 slots, on random
 inputs (S = 1 .. 1,000, B·H = 1 .. 256, every supported head_dim) and on
@@ -756,8 +769,11 @@ def check_flash_attention(device, model, mixtral_attn) -> dict:
     """Phase 2: flash_attention against its plain version, within the
     tolerances of tests/test_kernels.py, on a real full-width gemma3-1b
     prefill, on every layer of a real full-width mixtral-8x22b prefill
-    (``mixtral_attn``, capture_mixtral's calls) and on random inputs;
-    times at gemma's shapes and at mixtral's."""
+    (``mixtral_attn``, capture_mixtral's calls) and on random inputs
+    (bf16 on the tensor-core kernel, f32 on the CUDA-core one); its
+    build report; times in turns at gemma's shapes and at mixtral's,
+    whose layer 0 (where B4 costs the most device time per run) gives
+    the JSON row's numbers."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
@@ -844,15 +860,73 @@ def check_flash_attention(device, model, mixtral_attn) -> dict:
               f"({bound_by}), kernel at {bound_ms / ms:.4f} of its bound")
         return ms, plain_ms, lib_ms, bound_ms, bound_by
 
+    def timed_in_turns(label, q, k, v, kind, window):
+        """Device ms, in one call and in turns (each timed twice, the
+        order reversed the second time): the kernel (its own choice of
+        head packing), the tensor-core kernel at one and at two query
+        heads of a KV head a block, the earlier CUDA-core design, the
+        plain version and SDPA (the yardstick); beside the bound. The
+        mean of the two turns."""
+        lib, how = sdpa_call(q, k, v, kind, window)
+        paired = ops._flash_attention_tc(q, k, v, kind=kind, window=window,
+                                         heads_per_block=2)
+        single = ops._flash_attention_tc(q, k, v, kind=kind, window=window,
+                                         heads_per_block=1)
+        torch.cuda.synchronize()
+        if not torch.equal(paired, single):
+            failed.append(f"{label}: one head a block differs from two")
+        fns = {
+            "kernel": lambda: ops.flash_attention_cuda(
+                q, k, v, kind=kind, window=window),
+            "one head a block": lambda: ops._flash_attention_tc(
+                q, k, v, kind=kind, window=window, heads_per_block=1),
+            "two heads a block": lambda: ops._flash_attention_tc(
+                q, k, v, kind=kind, window=window, heads_per_block=2),
+            "CUDA-core design": lambda: ops._flash_attention_simt(
+                q, k, v, kind=kind, window=window),
+            "plain": lambda: flash_attention_ref(q, k, v, kind=kind,
+                                                 window=window),
+            f"SDPA ({how})": lib,
+        }
+        turns = {name: [] for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                turns[name].append(graph_ms(fns[name], repeats=10,
+                                            samples=11))
+        ms = {name: sum(t) / len(t) for name, t in turns.items()}
+        bound_ms, bound_by = attention_bound(q, k, kind, window)
+        kern = ms["kernel"]
+        print(f"flash_attention in turns, {label} ({kind} window {window}, "
+              f"q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}; "
+              f"{power}): " + "; ".join(
+                  f"{name} {t[0]:.6f} / {t[1]:.6f} ms" for name, t in
+                  turns.items())
+              + f"; bound {bound_ms:.6f} ms ({bound_by}); the kernel at "
+              f"{bound_ms / kern:.4f} of its bound, "
+              f"{kern / ms[f'SDPA ({how})']:.3f}x SDPA, "
+              f"{ms['CUDA-core design'] / kern:.2f}x faster than the "
+              f"CUDA-core design; two heads a block "
+              f"{ms['two heads a block'] / ms['one head a block']:.3f}x "
+              f"one head a block's time")
+        return kern, ms["plain"], ms[f"SDPA ({how})"], bound_ms, bound_by
+
+    power = gpu_name_and_power()
+    flash_attention_build_report()
+    if failed:
+        raise AssertionError("flash_attention: " + "; ".join(failed))
     first = {kd: i for i, (_q, _k, _v, kd, _w) in reversed(list(
         enumerate(real)))}
-    ms, plain_ms, lib_ms, bound_ms, bound_by = timed(
-        f"layer {first['full']} of the {seq}-token prefill",
-        *real[first["full"]])
-    timed(f"layer {first['swa']} of the {seq}-token prefill",
-          *real[first["swa"]])
-    timed(f"mixtral-8x22b layer 0 of the {mixtral_attn[0][0].shape[1]}-token "
-          f"prefill", *mixtral_attn[0])
+    timed_in_turns(f"gemma3-1b layer {first['full']} of the {seq}-token "
+                   f"prefill", *real[first["full"]])
+    timed_in_turns(f"gemma3-1b layer {first['swa']} of the {seq}-token "
+                   f"prefill", *real[first["swa"]])
+    mix_seq = mixtral_attn[0][0].shape[1]
+    ms, plain_ms, lib_ms, bound_ms, bound_by = timed_in_turns(
+        f"mixtral-8x22b layer 0 of the {mix_seq}-token prefill",
+        *mixtral_attn[0])
+    if failed:
+        raise AssertionError("flash_attention: " + "; ".join(failed))
+    packing_sweep(device, cfg, mixtral_attn[0])
     for s in (513, 4096):
         args = random_attention(1, s, cfg.num_heads, cfg.num_kv_heads,
                                 cfg.head_dim, torch.bfloat16, s, device)
@@ -861,10 +935,12 @@ def check_flash_attention(device, model, mixtral_attn) -> dict:
     timed("random S=2048", *random_attention(
         1, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
         torch.float32, 2048, device), "full", 0)
+    q, k, _v, kind, window = mixtral_attn[0]
     return dict(
         name="flash_attention",
         route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention_tc.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:74",
         launches=0,
         max_abs_err=worst[0],
@@ -873,7 +949,115 @@ def check_flash_attention(device, model, mixtral_attn) -> dict:
         bound_ms=bound_ms,
         bound_by=bound_by,
         library_ms=lib_ms,
+        shape=f"mixtral-8x22b layer 0 of a real {mix_seq}-token prefill: "
+              f"q {list(q.shape)}, k/v {list(k.shape)}, bf16, {kind} "
+              f"window {window}",
     )
+
+
+def packing_sweep(device, cfg, mixtral_call) -> None:
+    """B4's head packing against the prompt length: device ms at one and
+    at two query heads a block, and the kernel's own choice, at gemma's
+    global layout and mixtral's, random bf16 inputs, one turn each."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mq, mk = mixtral_call[:2]
+    layouts = (("gemma3-1b global", cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, "full", 0, (600, 1200, 3000)),
+               ("mixtral-8x22b", mq.shape[2], mk.shape[2], mq.shape[3],
+                "swa", mixtral_call[4], (300, 600, 1200)))
+    for label, hq, hkv, d, kind, w, lengths in layouts:
+        for s in lengths:
+            q, k, v = random_attention(1, s, hq, hkv, d, torch.bfloat16, s,
+                                       device)
+            t = {n: graph_ms(lambda n=n: ops._flash_attention_tc(
+                q, k, v, kind=kind, window=w, heads_per_block=n),
+                repeats=10, samples=11) for n in (1, 2)}
+            auto = graph_ms(lambda: ops.flash_attention_cuda(
+                q, k, v, kind=kind, window=w), repeats=10, samples=11)
+            paired = -(-s // ops.Q_TILE) * hq // 2
+            print(f"flash_attention packing, {label} S={s}: one head a "
+                  f"block {t[1]:.6f} ms, two {t[2]:.6f} ms ({paired} "
+                  f"paired blocks on {sms} SMs), the kernel's choice "
+                  f"{auto:.6f} ms")
+
+
+def flash_attention_build_report() -> None:
+    """B4's build, per template instance: registers, spills (0 required
+    for every tensor-core instance) and dynamic shared memory, from
+    nvcc's -Xptxas -v; and the count of HGMMA (wgmma) instructions in the
+    built library's SASS (cuobjdump), or of wgmma in its PTX where the
+    toolkit has no cuobjdump (at least one required)."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+
+    for name in ("flash_attention", "flash_attention_simt"):
+        if name not in _build.BUILD_LOG:
+            print(f"build: {name} was built before this run (cached in "
+                  f"{_build.BUILD_DIR}): no ptxas report")
+            continue
+        found = {}  # mangled kernel name -> ptxas's numbers
+        fn = None
+        for line in _build.BUILD_LOG[name][1].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+                found[fn] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                found[fn]["spills"] = tuple(map(int, m.groups()))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                found[fn]["registers"] = int(m.group(1))
+        for fn, got in sorted(found.items()):
+            tc = re.search(r"flash_attention_tc_kernelILi(\d+)ELi(\d+)E", fn)
+            simt = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E", fn)
+            stores, loads = got.get("spills", (None, None))
+            if tc:
+                d, wg = int(tc.group(1)), int(tc.group(2))
+                bk = 64 if d == 256 else 128
+                what = (f"tensor-core d={d}, {wg} head(s) a block: "
+                        f"{got.get('registers')} registers at entry"
+                        + (" (setmaxnreg: consumers 240, producer 24)"
+                           if wg == 2 else "")
+                        + f", dynamic shared memory "
+                        f"{wg * 64 * d * 2 + 4 * bk * d * 2 + 1088} B")
+                if stores != 0 or loads != 0:
+                    raise AssertionError(f"flash_attention: {what}; spill "
+                                         f"stores {stores}, loads {loads}")
+            elif simt:
+                t = "f32" if simt.group(1) == "f" else "bf16"
+                what = (f"CUDA-core {t} d={simt.group(2)}: "
+                        f"{got.get('registers')} registers")
+            else:
+                what = fn
+            print(f"build: {what}; spill stores {stores} B, spill loads "
+                  f"{loads} B")
+    lib = Path(ops._library()._name)  # the library this run loaded
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).parent / "cuobjdump")
+    if Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                              capture_output=True, text=True).stdout
+        count, where = sass.count("HGMMA"), f"HGMMA in {lib.name}'s SASS"
+    else:
+        ptx = _build.BUILD_DIR / "flash_attention_tc.ptx"
+        subprocess.run([_build._nvcc(), "-gencode",
+                        "arch=compute_90a,code=compute_90a", "-std=c++17",
+                        "-ptx", "-o", str(ptx), str(ops.SOURCES[0])],
+                       check=True, capture_output=True)
+        count, where = ptx.read_text().count("wgmma.mma_async"), \
+            "wgmma.mma_async in its PTX (no cuobjdump)"
+    print(f"build: {count} {where}")
+    if count == 0:
+        raise AssertionError("flash_attention: no wgmma in the built kernel")
 
 
 def capture_scans(cfg, params, device, prompts, max_new_tokens, keep):
@@ -1675,6 +1859,8 @@ def profile_serving(model, device, wall_s, kernels) -> None:
     activity only: about 210,000 kernels for gemma3-1b): CUDA kernels,
     device seconds, each of ``kernels``' share of them, and the device
     busy share against the unprofiled run's wall time."""
+    import re
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1687,8 +1873,10 @@ def profile_serving(model, device, wall_s, kernels) -> None:
           f"{time.time() - t0:.3f} s")
     n_kernels = sum(e.count for e in kern)
     dev_s = sum(e.self_device_time_total for e in kern) / 1e6
+    # B4's bf16 kernel is flash_attention_tc_kernel
     k_s = {k: sum(e.self_device_time_total for e in kern
-                  if f"{k}_kernel" in e.key) / 1e6 for k in kernels}
+                  if re.search(rf"{k}(_tc)?_kernel", e.key)) / 1e6
+           for k in kernels}
     if n_kernels <= 0 or not all(k_s.values()):
         raise AssertionError(f"the profiler saw no CUDA kernel or not each "
                              f"of {kernels}: {k_s}")
@@ -1928,15 +2116,20 @@ def build_kernels() -> None:
     from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 
     t0 = time.time()
-    with ThreadPoolExecutor() as pool:
-        for f in [pool.submit(o._library)
-                  for o in (lg_ops, dw_ops, fa_ops, rw_ops, md_ops)]:
+    builds = {"lock_grant": lg_ops._library,
+              "dep_wavefront": dw_ops._library,
+              "flash_attention": fa_ops._library,
+              "flash_attention_simt": fa_ops._simt_library,
+              "rwkv6_scan": rw_ops._library,
+              "moe_dispatch": md_ops._library}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(build) for build in builds.values()]:
             f.result()
-    for name in ("lock_grant", "dep_wavefront", "flash_attention",
-                 "rwkv6_scan", "moe_dispatch"):
+    for name in builds:
         secs, log = _build.BUILD_LOG.get(name, (0.0, "(cached)"))
-        print(f"build: {name}.cu in {secs:.3f} s\n{log.strip()}")
-    print(f"build: all five kernels built and loaded in "
+        print(f"build: lib{name} in {secs:.3f} s\n{log.strip()}")
+    print(f"build: all five kernels (B4 as two libraries: bf16 on the "
+          f"tensor cores, f32 on the CUDA cores) built and loaded in "
           f"{time.time() - t0:.3f} s")
 
 

@@ -10,7 +10,8 @@ Each kernel directory has:
   dep_wavefront — segmented dependency-miss counts (the batch engine's
                   readiness scan: dgcc, quecc, scheduled)
   flash_attention — online-softmax attention forward, causal / sliding
-                  window / chunked (the models' prefill attention)
+                  window / chunked (the models' prefill attention; bf16
+                  on the tensor cores, f32 on the CUDA cores)
   rwkv6_scan    — the RWKV6 WKV recurrence over time (rwkv6's time mix,
                   in prefill and in every decode step)
   moe_dispatch  — each routed entry's position within its expert and the
@@ -18,14 +19,31 @@ Each kernel directory has:
                   mixtral's layers, in prefill and in every decode step)
 
 A wrapper launches its kernel for a CUDA tensor and raises if it cannot;
-it runs the plain version only for a tensor that lies on the CPU.
+it runs the plain version only for a tensor that lies on the CPU. It
+launches under its tensors' device (``device_guard``), so tensors on a
+card that is not the current one work too.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 KERNEL_IMPLS = ("auto", "jnp", "pallas")
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def device_guard(dev: torch.device):
+    """The context a wrapper launches its kernel in: ``dev`` is the
+    current CUDA device inside it (the C entry points launch on the
+    current device, and B4 sets its shared-memory limit per device). No
+    switch where ``dev`` already is current: B1 and B2 launch once per
+    simulator step."""
+    if dev.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(dev)
 
 
 def use_kernel(kernel_impl: str, device: torch.device | str) -> bool:

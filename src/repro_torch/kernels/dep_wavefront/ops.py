@@ -26,7 +26,7 @@ from repro_torch.core.lockgrant import (
     _segment_broadcast_last,
     segment_starts,
 )
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, device_guard
 from repro_torch.kernels.dep_wavefront.ref import dep_wavefront_ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "dep_wavefront.cu"]
@@ -72,11 +72,12 @@ def dep_wavefront_cuda(dst, src_ok):
         raise ValueError(f"dep_wavefront: {n} edges exceed int32 indexing")
     miss = torch.empty(n, dtype=torch.int32, device=dev)
     pos = torch.empty(n, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().dep_wavefront_launch(
-        dst.data_ptr(), src_ok.data_ptr(), miss.data_ptr(), pos.data_ptr(),
-        n, stream,
-    )
+    with device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library().dep_wavefront_launch(
+            dst.data_ptr(), src_ok.data_ptr(), miss.data_ptr(), pos.data_ptr(),
+            n, stream,
+        )
     if err != 0:
         raise RuntimeError(
             f"dep_wavefront kernel launch failed: CUDA error {err}")

@@ -1,4 +1,9 @@
-// Online-softmax (flash) attention forward: causal, sliding window, chunked.
+// Online-softmax (flash) attention forward on the CUDA cores: causal,
+// sliding window, chunked. ops.py sends f32 inputs here (TF32 tensor
+// cores cannot meet f32's 3e-5); bf16 goes to the tensor-core kernel of
+// flash_attention_tc.cu, and this kernel's bf16 instance is reachable only
+// through the private ops._flash_attention_simt, which chip_smoke.py times
+// beside the tensor-core kernel as the earlier design.
 //
 // Replaces the Pallas TPU kernel `flash_attention_kernel` / `_kernel`
 // (src/repro/kernels/flash_attention/kernel.py) and its GQA wrapper
@@ -42,9 +47,8 @@
 // two products take 4 * Hq * d flops per visible (query, key) pair:
 // S = 2,048, full causal, is 8.6 GFLOP, 8.7 us at the bf16 tensor-core
 // peak, against 10 MB of q, k, v and o, 3.1 us at 3.35 TB/s: bound by
-// operations. This first kernel does its products with f32 FMAs on the
-// CUDA cores (67 TFLOP/s peak), so it cannot come near that bound; the
-// tensor-core version (wgmma, TMA) is later work.
+// operations. This kernel does its products with f32 FMAs on the CUDA
+// cores (67 TFLOP/s peak), so in bf16 it cannot come near that bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +66,7 @@ constexpr int kLdP = kBK + 16;  // P row stride: two rows of a warp on
                                 // disjoint banks
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -275,13 +280,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int T_len, int HQ, int HKV, int kind,
                    int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  static bool configured = false;  // the dynamic shared memory limit, once
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the dynamic shared memory limit, once per (instantiation, device)
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev] = true;
   }
   const float scale = (float)(1.0 / sqrt((double)D));
   const dim3 grid(B * HQ, (S + kBQ - 1) / kBQ);

@@ -27,7 +27,7 @@ from repro_torch.core.lockgrant import (
     lex_order,
     segment_starts,
 )
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, device_guard
 from repro_torch.kernels.lock_grant.ref import lock_grant_ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "lock_grant.cu"]
@@ -76,12 +76,13 @@ def lock_grant_cuda(keys, kind, wh_free, rc):
     req_pos = torch.empty(n, dtype=torch.int32, device=dev)
     wbefore = torch.empty(n, dtype=torch.int32, device=dev)
     op_pos = torch.empty(n, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _library().lock_grant_launch(
-        keys.data_ptr(), kind.data_ptr(), wh_free.data_ptr(), rc.data_ptr(),
-        grant.data_ptr(), req_pos.data_ptr(), wbefore.data_ptr(),
-        op_pos.data_ptr(), n, stream,
-    )
+    with device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library().lock_grant_launch(
+            keys.data_ptr(), kind.data_ptr(), wh_free.data_ptr(), rc.data_ptr(),
+            grant.data_ptr(), req_pos.data_ptr(), wbefore.data_ptr(),
+            op_pos.data_ptr(), n, stream,
+        )
     if err != 0:
         raise RuntimeError(f"lock_grant kernel launch failed: CUDA error {err}")
     launches += 1

@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, device_guard
 from repro_torch.kernels.moe_dispatch.ref import dispatch_slots_ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "moe_dispatch.cu"]
@@ -73,11 +73,12 @@ def dispatch_positions_cuda(experts_sorted, capacity, num_experts):
     pos = torch.empty(n, dtype=torch.int32, device=e.device)
     keep = torch.empty(n, dtype=torch.bool, device=e.device)
     slot = torch.empty(n, dtype=torch.int32, device=e.device)
-    stream = torch.cuda.current_stream(e.device).cuda_stream
-    err = _library().moe_dispatch_launch(
-        e.data_ptr(), pos.data_ptr(), keep.data_ptr(), slot.data_ptr(), n,
-        capacity, num_experts * capacity, stream,
-    )
+    with device_guard(e.device):
+        stream = torch.cuda.current_stream(e.device).cuda_stream
+        err = _library().moe_dispatch_launch(
+            e.data_ptr(), pos.data_ptr(), keep.data_ptr(), slot.data_ptr(), n,
+            capacity, num_experts * capacity, stream,
+        )
     if err != 0:
         raise RuntimeError(f"moe_dispatch kernel launch failed: CUDA error "
                            f"{err}")

@@ -21,7 +21,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, device_guard
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"]
@@ -106,12 +106,13 @@ def rwkv6_scan_cuda(r, k, v, w, u, state0, *, state_out=None):
         state_out = torch.empty_like(state0)
     strides = (ctypes.c_longlong * 15)(
         *(s for t in (r, k, v, w, o) for s in t.stride()[:3]))
-    stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = _library().rwkv6_scan_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        state0.data_ptr(), o.data_ptr(), state_out.data_ptr(), B, H, S, D,
-        strides, stream,
-    )
+    with device_guard(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = _library().rwkv6_scan_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            state0.data_ptr(), o.data_ptr(), state_out.data_ptr(), B, H, S, D,
+            strides, stream,
+        )
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
                            f"{err}")
