@@ -8,9 +8,10 @@ Phases (each raises on failure; the script then exits non-zero):
   1. build   — compile every CUDA kernel of the paths from this checkout,
                all at once (``nvcc`` for sm_90a, one process per source,
                into build/repro_torch_kernels/; B4 is two libraries, the
-               tensor-core kernel for bf16 and the CUDA-core one for f32);
-               B4's registers, spills (none allowed) and shared memory per
-               template instance, and its HGMMA count, are printed in
+               tensor-core kernel for bf16 and the CUDA-core one for f32;
+               B5's earlier design is built beside it); B4's and B5's
+               registers, spills (none allowed) and shared memory per
+               template instance, and B4's HGMMA count, are printed in
                phase 2;
   2. kernels — hold each kernel bit-equal (integers, tolerance 0) to its
                plain PyTorch version on the card, and time both (CUDA
@@ -90,14 +91,19 @@ call and in turns, the kernel, the same kernel at one and at two heads a
 block, the earlier CUDA-core design (``ops._flash_attention_simt``),
 the plain version and F.scaled_dot_product_attention (the yardstick),
 beside the bound, and the head packing over prompt lengths; and
-rwkv6_scan to its plain version
-(RWKV_TOL) on all 24 layers of a real full-width 3,000-token rwkv6-1.6b
-prefill, on the 24 layers of a real decode step at 8 slots, on random
-inputs (S = 1 .. 1,000, B·H = 1 .. 256, every supported head_dim) and on
-test_kernels.py's shapes, and times it at the prefill and the decode
-shape beside its plain version and its bound. It holds flash_attention
-at mixtral's layout (6 query heads per KV head of 128) on every layer of
-a real full-width MIXTRAL_CHECK_SEQ-token mixtral-8x22b prefill too, and
+rwkv6_scan (register tiles of the state, the output sums reduced once
+per chunk) and its earlier design (``ops._rwkv6_scan_chain``) to the
+plain version (RWKV_TOL) on all 24 layers of a real full-width
+3,000-token rwkv6-1.6b prefill, on the 24 layers of a real decode step
+at 8 slots, on random inputs (S = 1 .. 1,000, B·H = 1 .. 256, every
+supported head_dim) and on test_kernels.py's shapes; it times the two in
+turns at the prefill layer, at the decode step with the L2 cache warm
+and cold (the 24 layers' states in sequence, twice the L2) and over
+prompt lengths of 600-3,000 tokens, beside the plain version and the
+bound, and sweeps the kernel's built tiles at both shapes. It holds
+flash_attention at mixtral's layout (6 query heads per KV head of 128)
+on every layer of a real full-width MIXTRAL_CHECK_SEQ-token
+mixtral-8x22b prefill too, and
 moe_dispatch bit-equal to its plain version on the sorted expert ids of
 every layer of that prefill and of a real decode step at 8 slots and on
 random sorted ids with a -1 tail (N = 1 .. 2^20), and the whole
@@ -985,6 +991,30 @@ def packing_sweep(device, cfg, mixtral_call) -> None:
                   f"{auto:.6f} ms")
 
 
+def ptxas_entries(log: str) -> dict:
+    """Per kernel (mangled name) in nvcc's -Xptxas -v output: its
+    registers, static shared memory and (spill stores, spill loads)."""
+    import re
+
+    found = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            found[fn] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and fn:
+            found[fn]["spills"] = tuple(map(int, m.groups()))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            found[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            found[fn]["smem"] = int(m.group(1)) if m else 0
+    return found
+
+
 def flash_attention_build_report() -> None:
     """B4's build, per template instance: registers, spills (0 required
     for every tensor-core instance) and dynamic shared memory, from
@@ -1002,20 +1032,7 @@ def flash_attention_build_report() -> None:
             print(f"build: {name} was built before this run (cached in "
                   f"{_build.BUILD_DIR}): no ptxas report")
             continue
-        found = {}  # mangled kernel name -> ptxas's numbers
-        fn = None
-        for line in _build.BUILD_LOG[name][1].splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn = m.group(1)
-                found[fn] = {}
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m and fn:
-                found[fn]["spills"] = tuple(map(int, m.groups()))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                found[fn]["registers"] = int(m.group(1))
+        found = ptxas_entries(_build.BUILD_LOG[name][1])
         for fn, got in sorted(found.items()):
             tc = re.search(r"flash_attention_tc_kernelILi(\d+)ELi(\d+)E", fn)
             simt = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E", fn)
@@ -1058,6 +1075,53 @@ def flash_attention_build_report() -> None:
     print(f"build: {count} {where}")
     if count == 0:
         raise AssertionError("flash_attention: no wgmma in the built kernel")
+
+
+def scan_tile_smem(D, rows, cols, block_cols, chunk) -> int:
+    """Dynamic shared memory of one instance of B5 (``Tile`` in
+    rwkv6_scan.cu): two chunk buffers of r, k, w and v, and the partial
+    column sums padded by one row group's columns."""
+    ps = D // rows * block_cols + block_cols
+    return 4 * (2 * (3 * chunk * D + chunk * block_cols) + chunk * ps)
+
+
+def rwkv6_scan_build_report() -> None:
+    """B5's build, per instance of the kernel and of its earlier design:
+    registers, shared memory and spills (0 required for every instance),
+    from nvcc's -Xptxas -v."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    for name in ("rwkv6_scan", "rwkv6_scan_chain"):
+        if name not in _build.BUILD_LOG:
+            print(f"build: {name} was built before this run (cached in "
+                  f"{_build.BUILD_DIR}): no ptxas report")
+            continue
+        found = ptxas_entries(_build.BUILD_LOG[name][1])
+        if not found:
+            raise AssertionError(f"build: no ptxas report for {name}")
+        for fn, got in sorted(found.items()):
+            tile = re.search(r"rwkv6_scan_tile_kernelILi(\d+)ELi(\d+)ELi"
+                             r"(\d+)ELi(\d+)ELi(\d+)E", fn)
+            chain = re.search(r"rwkv6_scan_chain_kernelILi(\d+)E", fn)
+            if tile:
+                d, rt, ct, c, t = map(int, tile.groups())
+                what = (f"rwkv6_scan hd={d}, {rt} x {ct} tile, {c} columns "
+                        f"a block, {t}-step chunk: {d // rt * c // ct} "
+                        f"threads, dynamic shared memory "
+                        f"{scan_tile_smem(d, rt, ct, c, t)} B")
+            elif chain:
+                what = f"rwkv6_scan_chain hd={chain.group(1)}: 64 threads"
+            else:
+                what = fn
+            stores, loads = got.get("spills", (None, None))
+            what += (f", {got.get('registers')} registers, static shared "
+                     f"memory {got.get('smem')} B; spill stores {stores} B, "
+                     f"spill loads {loads} B")
+            print(f"build: {what}")
+            if stores != 0 or loads != 0:
+                raise AssertionError(f"B5 spills: {what}")
 
 
 def capture_scans(cfg, params, device, prompts, max_new_tokens, keep):
@@ -1126,37 +1190,50 @@ def random_scan(B, H, S, D, seed, device, views=True):
 
 
 def check_rwkv6_scan(device, model) -> dict:
-    """Phase 2: rwkv6_scan against its plain version on the inputs of a
-    real full-width prefill and decode step, and on random inputs; times
-    at the prefill and the decode shape."""
+    """Phase 2: rwkv6_scan and its earlier design against the plain
+    version on the inputs of a real full-width prefill and decode step,
+    and on random inputs; the two designs timed in turns at the prefill
+    and the decode shape (the decode step also with the L2 cache cold),
+    over prompt lengths, and the kernel's built tiles swept."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.rwkv6_scan import ops
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
+    rwkv6_scan_build_report()
     cfg, params = model
-    worst = [0.0]
+    designs = (("kernel", ops.rwkv6_scan_cuda),
+               ("earlier design", ops._rwkv6_scan_chain))
+    worst = {name: 0.0 for name, _ in designs}
     failed = []
 
     def check(label, args, real):
-        """Largest |kernel - plain| over o and the state, and its ratio to
-        the tolerance; the state also written over a copy of state0."""
-        s_in = args[5].clone()
-        got_o, got_s = ops.rwkv6_scan_cuda(*args[:5], s_in, state_out=s_in)
-        torch.cuda.synchronize()
+        """Largest |design - plain| over o and the state, and its ratio to
+        the tolerance, per design; the state also written over a copy of
+        state0."""
         want = rwkv6_scan_ref(*args)
-        err = ratio = scale = 0.0
-        for got, ref in zip((got_o, got_s), want):
-            top = float(ref.abs().max())
-            tol = max(RWKV_TOL, RWKV_REL_TOL * top) if real else RWKV_TOL
-            e = float((got - ref).abs().max())
-            if not (e <= tol and bool(torch.isfinite(got).all())):
-                failed.append(f"{label}: {e} > {tol}")
-            err, ratio, scale = max(err, e), max(ratio, e / tol), max(scale,
-                                                                       top)
-        worst[0] = max(worst[0], err)
-        return err, ratio, scale
+        tops = [float(ref.abs().max()) for ref in want]
+        out = {}
+        for name, fn in designs:
+            s_in = args[5].clone()
+            got = fn(*args[:5], s_in, state_out=s_in)
+            torch.cuda.synchronize()
+            err = ratio = 0.0
+            for g, ref, top in zip(got, want, tops):
+                tol = max(RWKV_TOL, RWKV_REL_TOL * top) if real else RWKV_TOL
+                e = float((g - ref).abs().max())
+                if not (e <= tol and bool(torch.isfinite(g).all())):
+                    failed.append(f"{name}, {label}: {e} > {tol}")
+                err, ratio = max(err, e), max(ratio, e / tol)
+            worst[name] = max(worst[name], err)
+            out[name] = (err, ratio)
+        return out, max(tops)
+
+    def summary(res):
+        return "; ".join(f"{name} max_abs_err {max(r[name][0] for r in res)}"
+                         f", at most {max(r[name][1] for r in res)} of the "
+                         f"tolerance" for name, _ in designs)
 
     prompt = np.random.default_rng(SEED + 1).integers(
         2, cfg.vocab_size, RWKV_CHECK_SEQ).astype(np.int32)
@@ -1176,45 +1253,81 @@ def check_rwkv6_scan(device, model) -> dict:
                for i, a in enumerate(calls)]
         print(f"rwkv6_scan: the {len(res)} layers of {name} (r "
               f"{tuple(calls[0][0].shape)}, strides {calls[0][0].stride()}): "
-              f"max_abs_err {max(e for e, _, _ in res)}, at most "
-              f"{max(q for _, q, _ in res)} of the tolerance; largest "
-              f"|reference value| {max(m for _, _, m in res)}")
+              f"{summary([r for r, _ in res])}; largest |reference value| "
+              f"{max(m for _, m in res)}")
     for D in ops.HEAD_DIMS:
         for B, H in ((1, 1), (2, 3), (8, 32)):
             for S in (1, 7, 63, 64, 65, 1000):
-                e, q, _ = check(f"random B={B} H={H} S={S} hd={D}",
-                                random_scan(B, H, S, D, S + D + B * H,
-                                            device), real=False)
+                r, _ = check(f"random B={B} H={H} S={S} hd={D}",
+                             random_scan(B, H, S, D, S + D + B * H, device),
+                             real=False)
                 print(f"rwkv6_scan: random B={B} H={H} S={S} hd={D}: "
-                      f"max_abs_err {e}, {q} of the tolerance")
+                      f"{summary([r])}")
     for S in (64, 128, 96):
         for D in (16, 64):
-            e, q, _ = check(f"test_kernels S={S} hd={D}",
-                            random_scan(2, 3, S, D, S + D, device,
-                                        views=False), real=False)
+            r, _ = check(f"test_kernels S={S} hd={D}",
+                         random_scan(2, 3, S, D, S + D, device, views=False),
+                         real=False)
             print(f"rwkv6_scan: test_kernels shape B=2 H=3 S={S} hd={D}: "
-                  f"max_abs_err {e}, {q} of the tolerance")
+                  f"{summary([r])}")
     if failed:
         raise AssertionError("rwkv6_scan disagrees with its plain version: "
                              + "; ".join(failed))
 
-    def timed(label, args, repeats, plain_repeats, samples):
-        ms = graph_ms(lambda: ops.rwkv6_scan_cuda(*args), repeats=repeats,
-                      samples=samples)
-        plain_ms = graph_ms(lambda: rwkv6_scan_ref(*args),
-                            repeats=plain_repeats, samples=samples)
-        bound_ms, bound_by = scan_bound(args[0])
-        print(f"rwkv6_scan device time, {label} (r "
-              f"{tuple(args[0].shape)}): kernel {ms:.6f} ms, plain "
-              f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
-              f"kernel at {bound_ms / ms:.4f} of its bound")
-        return ms, plain_ms, bound_ms, bound_by
+    def turns(label, calls, repeats, samples):
+        """Device ms of each design per call of ``calls`` (argument tuples
+        run in sequence in one graph), in turns: earlier, kernel, kernel,
+        earlier; the mean of each design's two."""
+        fns = dict(designs)
+        ms = {name: [] for name in fns}
+        for name in ("earlier design", "kernel", "kernel", "earlier design"):
+            ms[name].append(graph_ms(
+                lambda: [fns[name](*a) for a in calls],
+                repeats=repeats, samples=samples) / len(calls))
+        bound_ms, bound_by = scan_bound(calls[0][0])
+        mean = {name: sum(v) / len(v) for name, v in ms.items()}
+        print(f"rwkv6_scan device time in turns, {label} (r "
+              f"{tuple(calls[0][0].shape)}): kernel {ms['kernel']} ms, "
+              f"earlier design {ms['earlier design']} ms; means "
+              f"{mean['kernel']:.6f} / {mean['earlier design']:.6f}: the "
+              f"kernel {mean['earlier design'] / mean['kernel']:.3f}x as "
+              f"fast, at {bound_ms / mean['kernel']:.4f} of its bound "
+              f"{bound_ms:.6f} ms ({bound_by})")
+        return mean, bound_ms, bound_by
 
-    ms, plain_ms, bound_ms, bound_by = timed(
-        f"layer 0 of the {RWKV_CHECK_SEQ}-token prefill", prefill[0], 20, 1,
-        5)
-    timed(f"layer 0 of the decode step at {SERVE_SLOTS} slots", decode[0],
-          100, 100, 21)
+    pre, bound_ms, bound_by = turns(
+        f"layer 0 of the {RWKV_CHECK_SEQ}-token prefill", prefill[:1], 20, 5)
+    turns(f"layer 0 of the decode step at {SERVE_SLOTS} slots, L2 warm",
+          decode[:1], 100, 21)
+    state_mb = decode[0][5].numel() * 4 / 1e6
+    turns(f"the decode step's {len(decode)} layers in sequence, each "
+          f"{state_mb:.1f} MB of state (L2 cold: {len(decode) * state_mb:.0f} "
+          f"MB against its 50 MB)", decode, 10, 21)
+    plain_ms = graph_ms(lambda: rwkv6_scan_ref(*prefill[0]), repeats=1,
+                        samples=5)
+    print(f"rwkv6_scan plain version, layer 0 of the prefill: {plain_ms:.6f} "
+          f"ms; at the decode step: "
+          f"{graph_ms(lambda: rwkv6_scan_ref(*decode[0])):.6f} ms")
+    for S in (600, 1200, 1800, 3000):
+        turns(f"the first {S} steps of prefill layer 0",
+              [tuple(x[:, :, :S] for x in prefill[0][:4]) + prefill[0][4:]],
+              20, 5)
+    for label, args, chunks in (("prefill layer 0", prefill[0], (ops.CHUNK,)),
+                                ("decode layer 0", decode[0],
+                                 (ops.DECODE_CHUNK,))):
+        sweep = [(tile, chunk) for tile in ops.SWEEP_TILES
+                 for chunk in (ops.DECODE_CHUNK, ops.CHUNK)]
+        sweep += [(ops.TILE, chunk) for chunk in ops.SWEEP_CHUNKS]
+        times = {f"{t[0]}x{t[1]}/{t[2]} columns, {c}-step chunk":
+                 graph_ms(lambda t=t, c=c: ops._rwkv6_scan_tile(
+                     *args, tile=t, chunk=c), repeats=20 if c > 4 else 100,
+                     samples=5 if args[0].shape[2] > 1 else 21)
+                 for t, c in sweep}
+        print(f"rwkv6_scan tile sweep, {label} (the default: "
+              f"{'decode' if chunks == (ops.DECODE_CHUNK,) else 'prefill'}"
+              f"), ms: " + ", ".join(f"{k} {v:.6f}"
+                                     for k, v in sorted(times.items(),
+                                                        key=lambda kv: kv[1])))
     print(f"rwkv6_scan eager (host-issued) at the decode step: kernel "
           f"wrapper {eager_ms(lambda: ops.rwkv6_scan_cuda(*decode[0])):.6f} "
           f"ms, plain {eager_ms(lambda: rwkv6_scan_ref(*decode[0])):.6f} ms")
@@ -1224,12 +1337,15 @@ def check_rwkv6_scan(device, model) -> dict:
         source="src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan/kernel.py:54",
         launches=0,
-        max_abs_err=worst[0],
-        ms=ms,
+        max_abs_err=worst["kernel"],
+        ms=pre["kernel"],
         plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by=bound_by,
         library_ms=None,
+        earlier_design_ms=pre["earlier design"],
+        shape=f"layer 0 of a real {RWKV_CHECK_SEQ}-token rwkv6-1.6b prefill: "
+              f"r {list(prefill[0][0].shape)}, f32",
     )
 
 
@@ -1873,10 +1989,12 @@ def profile_serving(model, device, wall_s, kernels) -> None:
           f"{time.time() - t0:.3f} s")
     n_kernels = sum(e.count for e in kern)
     dev_s = sum(e.self_device_time_total for e in kern) / 1e6
-    # B4's bf16 kernel is flash_attention_tc_kernel
-    k_s = {k: sum(e.self_device_time_total for e in kern
-                  if re.search(rf"{k}(_tc)?_kernel", e.key)) / 1e6
-           for k in kernels}
+    # B4's bf16 kernel is flash_attention_tc_kernel, B5's
+    # rwkv6_scan_tile_kernel
+    mine = {k: [e for e in kern if re.search(rf"{k}(_tc|_tile)?_kernel",
+                                             e.key)] for k in kernels}
+    k_s = {k: sum(e.self_device_time_total for e in es) / 1e6
+           for k, es in mine.items()}
     if n_kernels <= 0 or not all(k_s.values()):
         raise AssertionError(f"the profiler saw no CUDA kernel or not each "
                              f"of {kernels}: {k_s}")
@@ -1885,7 +2003,8 @@ def profile_serving(model, device, wall_s, kernels) -> None:
           f"kernels, device {dev_s:.4f} s against {wall_s:.4f} s wall "
           f"unprofiled ({prof_wall:.4f} s under the profiler): device busy "
           f"share {dev_s / wall_s:.4f}; "
-          + ", ".join(f"{k} {t:.4f} s ({t / dev_s:.4f} of device time)"
+          + ", ".join(f"{k} {t:.4f} s ({t / dev_s:.4f} of device time; "
+                      f"{sorted({e.key[:60] for e in mine[k]})})"
                       for k, t in k_s.items())
           + "; top kernels: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
@@ -2121,6 +2240,7 @@ def build_kernels() -> None:
               "flash_attention": fa_ops._library,
               "flash_attention_simt": fa_ops._simt_library,
               "rwkv6_scan": rw_ops._library,
+              "rwkv6_scan_chain": rw_ops._chain_library,
               "moe_dispatch": md_ops._library}
     with ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(build) for build in builds.values()]:
@@ -2129,8 +2249,8 @@ def build_kernels() -> None:
         secs, log = _build.BUILD_LOG.get(name, (0.0, "(cached)"))
         print(f"build: lib{name} in {secs:.3f} s\n{log.strip()}")
     print(f"build: all five kernels (B4 as two libraries: bf16 on the "
-          f"tensor cores, f32 on the CUDA cores) built and loaded in "
-          f"{time.time() - t0:.3f} s")
+          f"tensor cores, f32 on the CUDA cores; B5 beside its earlier "
+          f"design) built and loaded in {time.time() - t0:.3f} s")
 
 
 def main() -> int:

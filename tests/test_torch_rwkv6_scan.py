@@ -1,15 +1,19 @@
 """The port's rwkv6_scan (kernel B5) against the JAX package: its plain
 version against the JAX oracle and the Pallas kernel in interpret mode,
-the wrapper's CPU path and its argument checks, and (on a card) the CUDA
-kernel against its plain version. The JAX package is imported by the
-tests that compare with it, so the card's test runs where JAX is not
-installed.
+the wrapper's CPU path and its argument checks (also of the private
+entry points to the earlier design and to the kernel's sweep tiles), and
+(on a card) the CUDA kernel and its earlier design against the plain
+version, at the new kernel's chunk edges. The JAX package is imported
+by the tests that compare with it, so the card's tests run where JAX is
+not installed.
 
 Tolerance: tests/test_kernels.py's absolute 2e-4 at its input scales
 (r, k, v and the state about 0.1-0.2, decays 0.4-0.9, u 0.1). Both
 sides run the recurrence in float32 and differ only in the order of
 the sums; the kernel's bonus term is reassociated (r . (u k) v).
 """
+
+import re
 
 import pytest
 
@@ -189,3 +193,88 @@ def test_rwkv6_scan_kernel_matches_plain_on_card(B, H, S, D):
     assert st2 is s0
     torch.testing.assert_close(o2, want_o, rtol=0, atol=ATOL)
     torch.testing.assert_close(s0, want_st, rtol=0, atol=ATOL)
+
+
+# the private entry points: the earlier design (timed beside the kernel)
+# and the kernel at a chosen built instance (the tile sweep)
+PRIVATE = {
+    "earlier design": ops._rwkv6_scan_chain,
+    "sweep tile": lambda *a, **kw: ops._rwkv6_scan_tile(
+        *a, tile=(8, 1, 16), chunk=ops.CHUNK, **kw),
+}
+
+
+@pytest.mark.parametrize("case", [
+    "bf16", "k shape", "u shape", "state shape", "state_out dtype",
+    "head_dim", "empty", "last dim strided", "unaligned",
+    "state not contiguous"])
+@pytest.mark.parametrize("entry", sorted(PRIVATE))
+def test_private_entry_points_raise_like_the_kernel(entry, case):
+    """The same ``_check`` as ``rwkv6_scan_cuda``: the same error types on
+    the same bad arguments, before anything is built or launched."""
+    args, kw = _bad(case)
+    with pytest.raises((TypeError, ValueError)) as got:
+        PRIVATE[entry](*args, **kw)
+    with pytest.raises((TypeError, ValueError)) as want:
+        ops.rwkv6_scan_cuda(*args, **kw)
+    assert got.type is want.type
+
+
+@pytest.mark.parametrize("entry", sorted(PRIVATE))
+def test_private_entry_points_reject_cpu_tensors_and_do_not_count(entry):
+    args = _t(_inputs(1, 2, 4, 16, seed=6))
+    before = ops.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        PRIVATE[entry](*args)
+    assert ops.launches == before
+
+
+def test_the_wrapper_names_only_instances_the_kernel_builds():
+    """Every (hd, tile, chunk) the wrapper and the sweep ask for is one of
+    the instances rwkv6_scan.cu builds (RWKV6_TILES), so a launch on the
+    card finds its instance."""
+    src = ops.SOURCES[0].read_text()
+    block = re.search(r"#define RWKV6_TILES\(X\)(.*?)\n\n", src, re.S)
+    built = {tuple(map(int, m)) for m in
+             re.findall(r"X\((\d+), (\d+), (\d+), (\d+), (\d+)\)",
+                        block.group(1))}
+    want = {(D, *ops.TILE, ops.CHUNK) for D in ops.HEAD_DIMS}
+    want |= {(D, *(ops.DECODE_TILE if D >= 32 else ops.TILE),
+              ops.DECODE_CHUNK) for D in ops.HEAD_DIMS}
+    want |= {(64, *tile, chunk) for tile in ops.SWEEP_TILES
+             for chunk in (ops.DECODE_CHUNK, ops.CHUNK)}
+    want |= {(64, *ops.TILE, chunk) for chunk in ops.SWEEP_CHUNKS}
+    assert want <= built, sorted(want - built)
+
+
+# S at the new kernel's chunk edges: a decode chunk (1, T - 1, T of its
+# 4 steps) and a prefill one (T + 1 of the decode chunk, T - 1, T, T + 1
+# and 2T + 1 of the 32-step chunk)
+EDGES = (1, 3, 4, 5, 31, 32, 33, 65)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", EDGES)
+@pytest.mark.parametrize("B,H", [(1, 1), (8, 32)])
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+@pytest.mark.parametrize("design", ["kernel", "earlier design"])
+def test_both_designs_match_plain_at_chunk_edges_on_card(design, D, B, H, S):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fn = {"kernel": ops.rwkv6_scan_cuda,
+          "earlier design": ops._rwkv6_scan_chain}[design]
+    args = _t(_inputs(B, H, S, D, seed=B * H + S + D), "cuda")
+    want_o, want_st = rwkv6_scan_ref(*args)
+    # the model's layout: [B,H,S,hd] views of [B,S,H,hd] tensors
+    views = [a.transpose(1, 2).contiguous().transpose(1, 2)
+             for a in args[:4]]
+    before = ops.launches
+    o, st = fn(*views, *args[4:])
+    s0 = args[5].clone()
+    o2, st2 = fn(*args[:5], s0, state_out=s0)
+    torch.cuda.synchronize()
+    assert ops.launches == before + (2 if design == "kernel" else 0)
+    assert st2 is s0
+    for got, want in ((o, want_o), (st, want_st), (o2, want_o),
+                      (s0, want_st)):
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
