@@ -9,27 +9,36 @@ Phases (each raises on failure; the script then exits non-zero):
                all at once (``nvcc`` for sm_90a, one process per source,
                into build/repro_torch_kernels/; B4 is two libraries, the
                tensor-core kernel for bf16 and the CUDA-core one for f32;
-               B5's earlier design is built beside it); B4's and B5's
-               registers, spills (none allowed) and shared memory per
-               template instance, and B4's HGMMA count, are printed in
-               phase 2;
+               B1's, B2's and B5's earlier designs are built beside
+               them); every B1, B2, B4 and B5 instance's registers,
+               spills (none allowed) and shared memory, and B4's HGMMA
+               count, are printed in phase 2;
   2. kernels — hold each kernel bit-equal (integers, tolerance 0) to its
                plain PyTorch version on the card, and time both (CUDA
-               graph replays): lock_grant on the entries of a real
-               full-width ORTHRUS round (N = T*K = 2,560) and on random
-               sorted inputs at N = 1,024 .. 2^20; dep_wavefront on the
-               edges of a real scan of each full-width batch cell below
-               (E = T*P = 768, 2,048, 128, 40), each also through the
-               engine's row form against the dense check, and on random
-               grouped inputs at E = 40 .. 2^20 (tile multiples and
-               not), plus its whole wrapper against the dense oracle;
+               graph replays): lock_grant's fused form (the whole ORTHRUS
+               grant decision in one launch) on the round of a real
+               full-width run (T*K = 2,560) and on random rounds (T*K =
+               12 .. 4,096; above that the engine's chain around the
+               sorted form), its sorted form and earlier design on that
+               round's sorted entries and on random sorted inputs at
+               N = 1 .. 2^20; dep_wavefront's row form (the batch
+               engine's stage 4 in one launch) on the readiness check of
+               each full-width batch cell below (E = T*P = 768, 2,048,
+               128, 40), also against the dense check, and on random rows
+               (T up to 3,000), its grouped-edge form and earlier design
+               on those edges and on random grouped inputs at E = 1 ..
+               2^20, plus its whole wrapper against the dense oracle. In
+               turns: each new form against its earlier design, each
+               fused launch against the eager chain it replaces (graph
+               replay and host-issued), an empty launch (the floor);
   3. goldens — replay the nine ported cells of tests/golden/ on the card,
                bit-exactly;
   4. main path, slice 1 — YCSB at the paper's width (10 M records, 64
                hot, 8,192 txns) through ``run_simulation``: orthrus (16 CC
                + 64 exec lanes, window 4) through lock_grant, the same
                cell on the plain path (identical fingerprint required),
-               and deadlock_free on 80 exec lanes; a step profile of each;
+               and deadlock_free on 80 exec lanes; step profiles, the
+               kernel and plain paths of orthrus in turns;
   5. main path, slice 2 — the batch-planned engine at the paper's width:
                dgcc and quecc (16 planner + 64 exec lanes, window 4),
                quecc with fragments and inter-batch pipelining (fig14's
@@ -37,7 +46,7 @@ Phases (each raises on failure; the script then exits non-zero):
                (fig18's cell, 40 lanes), each through dep_wavefront and
                on the plain path (identical fingerprints, metrics
                included); dep_wavefront launches = steps on every kernel
-               run; step profiles of dgcc on both paths and of
+               run; step profiles of dgcc's two paths in turns and of
                quecc_frag_pipe;
   6. main path, slice 3 — gemma3-1b serving at its published width (26
                layers, d_model 1,152, vocab 262,144, bf16, random weights
@@ -352,21 +361,89 @@ def random_requests(n: int, num_records: int, seed: int, device):
     return t(keys), t(ts), t(kind), t(wh), t(rc)
 
 
+def random_step(T: int, K: int, num_records: int, seed: int, device):
+    """Random inputs of the fused grant (``lock_grant_step``): keys that
+    collide on 16 hot records, and some past the lock table; both modes;
+    pending, release and inactive entries; stamps with ties and negative
+    ones (as after ``rebase_enq``); a lock table whose write holders
+    include the entries' own slots (re-entrant grants) and whose read
+    counts are partly non-zero. Returns the call's arguments."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shape = (T, K)
+    keys = np.where(rng.random(shape) < 0.5, rng.integers(0, 16, shape),
+                    rng.integers(0, num_records + num_records // 4 + 1,
+                                 shape))
+    modes = rng.integers(0, 2, shape)
+    pend = rng.random(shape) < 0.4
+    rel = rng.random(shape) < 0.1
+    enq = rng.integers(-50, T * K // 2 + 1, shape)
+    R1 = num_records + 1
+    wh = np.where(rng.random(R1) < 0.3, rng.integers(0, T, R1), -1)
+    rc = np.where(rng.random(R1) < 0.3, rng.integers(1, 4, R1), 0)
+
+    def t(a, dt=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+
+    return (t(keys), t(modes), t(pend, torch.bool), t(rel, torch.bool),
+            t(enq), t(wh), t(rc), num_records)
+
+
+def chain_inputs(step_args):
+    """The engine's chain around the sorted form on one round's inputs:
+    (the sorted-form inputs, the chain's other arguments)."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.core.lockgrant import (
+        REQ_NONE,
+        REQ_READ,
+        REQ_RELEASE,
+        REQ_WRITE,
+    )
+
+    keys, modes, pend2d, rel, enq, wh, rc, R = step_args
+    T, K = keys.shape
+    dev = keys.device
+    ent_slot = torch.arange(T, dtype=torch.int32,
+                            device=dev).repeat_interleave(K)
+    consts = tuple(torch.tensor(v, dtype=torch.int32, device=dev)
+                   for v in (REQ_WRITE, REQ_READ, REQ_RELEASE, REQ_NONE))
+    chain_args = (keys, modes, pend2d, rel, enq, wh[:R], rc[:R], ent_slot,
+                  consts)
+    sorted_args = []
+
+    def grab(*a):
+        sorted_args[:] = a
+        return a[1] == -1  # any bool [N]; the inputs are what is wanted
+
+    engine.grant_chain(*chain_args, grab)
+    return sorted_args, chain_args
+
+
 def capture_orthrus_round(device, max_rounds: int = 400):
-    """The kernel's inputs (sorted entries) of the last ORTHRUS grant pass
-    of a short full-width run."""
+    """The fused grant's inputs (cloned) of the round with the most
+    pending entries in a short full-width ORTHRUS run."""
     from repro_torch.core.engine import EngineConfig, run_simulation
     from repro_torch.core.workloads import WorkloadConfig, make_workload
     from repro_torch.kernels.lock_grant import ops
 
     captured = []
-    original = ops.lock_grant_sorted
+    most = [-1]
+    original = ops.lock_grant_step
 
-    def capture(*args):
-        captured[:] = [a.clone() for a in args]
-        return original(*args)
+    def capture(*args, **kw):
+        n = int(args[2].sum())
+        if n >= most[0]:
+            most[0] = n
+            captured[:] = [a.clone() if hasattr(a, "clone") else a
+                           for a in args]
+        return original(*args, **kw)
 
-    ops.lock_grant_sorted = capture
+    ops.lock_grant_step = capture
     try:
         run_simulation(
             EngineConfig(**ORTHRUS_FULL, max_rounds=max_rounds,
@@ -376,59 +453,181 @@ def capture_orthrus_round(device, max_rounds: int = 400):
             device=device,
         )
     finally:
-        ops.lock_grant_sorted = original
+        ops.lock_grant_step = original
     if not captured:
         raise AssertionError("the ORTHRUS run made no grant pass")
     return captured
 
 
-def check_lock_grant(device, sizes=(1024, 4096, 65536, 1 << 20)) -> dict:
-    """Phase 2: lock_grant against its plain version, bit-equal."""
+def in_turns(fns: dict, timer, rounds: int = 1) -> dict:
+    """``timer(fn)`` of every entry of ``fns``, in turns: in order, then
+    in reverse order, ``rounds`` times; name -> (the readings, their
+    mean)."""
+    got = {name: [] for name in fns}
+    for name in (list(fns) + list(fns)[::-1]) * rounds:
+        got[name].append(timer(fns[name]))
+    return {name: (v, sum(v) / len(v)) for name, v in got.items()}
+
+
+def print_turns(what: str, res: dict) -> None:
+    print(f"{what}, in turns (forward then reversed; each reading and the "
+          f"mean, ms): " + "; ".join(
+              f"{name} {' / '.join(f'{x:.6f}' for x in v)} = {m:.6f}"
+              for name, (v, m) in res.items()))
+
+
+def scan_build_report() -> None:
+    """B1's and B2's builds, per kernel of each library and of the
+    earlier designs': registers, shared memory and spills (0 required),
+    from nvcc's -Xptxas -v."""
+    from repro_torch.kernels import _build
+
+    for name in ("lock_grant", "lock_grant_tile", "dep_wavefront",
+                 "dep_wavefront_tile"):
+        if name not in _build.BUILD_LOG:
+            print(f"build: {name} was built before this run (cached in "
+                  f"{_build.BUILD_DIR}): no ptxas report")
+            continue
+        found = ptxas_entries(_build.BUILD_LOG[name][1])
+        if not found:
+            raise AssertionError(f"build: no ptxas report for {name}")
+        for fn, got in sorted(found.items()):
+            stores, loads = got.get("spills", (None, None))
+            what = (f"{name}: {fn}: {got.get('registers')} registers, "
+                    f"static shared memory {got.get('smem')} B; spill "
+                    f"stores {stores} B, spill loads {loads} B")
+            print(f"build: {what}")
+            if stores != 0 or loads != 0:
+                raise AssertionError(f"B1/B2 spills: {what}")
+
+
+def check_lock_grant(device, sizes=(1, 1024, 2560, 4096, 4097, 65536,
+                                    1 << 20)) -> dict:
+    """Phase 2: B1 against its plain versions, bit-equal: the fused form
+    on the round of a full-width ORTHRUS run and on random rounds (T*K =
+    12 .. 4,096; above the capacity the engine's chain around the sorted
+    form), the sorted form and its earlier design on that round's sorted
+    entries and on random sorted inputs up to 2^20, the whole wrapper
+    against ``grant_round``. Then times, in turns: the sorted form
+    against its earlier design, the fused launch against the eager chain
+    it replaces (graph replay and host-issued), the launch floor."""
     import torch
 
+    from repro_torch.core import engine
     from repro_torch.core.lockgrant import grant_round
     from repro_torch.kernels.lock_grant import ops
-    from repro_torch.kernels.lock_grant.ref import lock_grant_ref
+    from repro_torch.kernels.lock_grant.ref import (
+        lock_grant_ref,
+        lock_grant_step_ref,
+    )
 
-    kernel = ops.lock_grant_sorted
+    scan_build_report()
     err = 0
-    main = capture_orthrus_round(device)
-    n_main = main[0].shape[0]
-    err = max(err, max_abs_err(kernel(*main), lock_grant_ref(*main)))
-    print(f"lock_grant: N={n_main} entries of a full-width ORTHRUS round: "
-          f"bit-equal (max_abs_err {err})")
-    for i, n in enumerate(sizes):
-        args = random_sorted_entries(n, seed=i, device=device)
-        e = max_abs_err(kernel(*args), lock_grant_ref(*args))
-        keys, ts, kind, wh, rc = random_requests(n, n // 8, seed=i,
-                                                 device=device)
-        g1, c1 = ops.lock_grant(keys, ts, kind, wh, rc, num_records=n // 8,
-                                block_n=1024)
-        g0, c0, _ = grant_round(keys, ts, kind, wh, rc, n // 8)
-        e = max(e, max_abs_err((g1, c1), (g0, c0)))
-        print(f"lock_grant: random N={n}: sorted entries and full wrapper "
+    designs = {"kernel": ops.lock_grant_cuda,
+               "earlier design": ops._lock_grant_tile}
+
+    def hold_sorted(label, args):
+        want = lock_grant_ref(*args)
+        e = max(max_abs_err(fn(*args), want) for fn in designs.values())
+        print(f"lock_grant sorted form: {label}: kernel and earlier design "
               f"bit-equal (max_abs_err {e})")
-        err = max(err, e)
+        return e
+
+    def hold_step(label, args):
+        want = lock_grant_step_ref(*args)
+        e = max_abs_err((ops.lock_grant_step_cuda(*args),), (want,))
+        print(f"lock_grant fused form: {label}: bit-equal (max_abs_err {e}, "
+              f"{int(args[2].sum())} pending, {int(want.sum())} granted)")
+        return e
+
+    main = capture_orthrus_round(device)
+    T, K = main[0].shape
+    n_main = T * K
+    err = max(err, hold_step(f"the round of a full-width ORTHRUS run with "
+                             f"the most pending entries, T*K = {T}*{K}",
+                             main))
+    sorted_main, chain_main = chain_inputs(main)
+    err = max(err, hold_sorted(f"that round's N={n_main} sorted entries",
+                               sorted_main))
+    for i, (t, k) in enumerate(((4, 3), (16, 10), (64, 10), (256, 10),
+                                (409, 10), (512, 8))):
+        for seed in range(3):
+            R = (3, 50, 131072)[seed]
+            err = max(err, hold_step(f"random T*K = {t}*{k}, R = {R}",
+                                     random_step(t, k, R, 10 * i + seed,
+                                                 device)))
+    # above the capacity the engine runs its chain around the sorted form
+    big = random_step(512, 10, 1000, 99, device)
+    try:
+        ops.step_output(512, 10, 1000, device)
+        raise AssertionError("lock_grant_step took 5,120 entries")
+    except ValueError:
+        pass
+    got = engine.grant_chain(
+        *chain_inputs(big)[1],
+        lambda *a: ops.lock_grant_sorted(*a)[0])
+    e = max_abs_err((got,), (lock_grant_step_ref(*big),))
+    print(f"lock_grant above the fused capacity (T*K = 512*10): the "
+          f"engine's chain around the sorted form bit-equal (max_abs_err "
+          f"{e})")
+    err = max(err, e)
+    for i, n in enumerate(sizes):
+        err = max(err, hold_sorted(f"random N={n}", random_sorted_entries(
+            n, seed=i, device=device)))
+        if n >= 8:
+            keys, ts, kind, wh, rc = random_requests(n, n // 8, seed=i,
+                                                     device=device)
+            g1, c1 = ops.lock_grant(keys, ts, kind, wh, rc,
+                                    num_records=n // 8, block_n=1024)
+            g0, c0, _ = grant_round(keys, ts, kind, wh, rc, n // 8)
+            e = max_abs_err((g1, c1), (g0, c0))
+            print(f"lock_grant: random N={n}: the whole wrapper bit-equal "
+                  f"to grant_round (max_abs_err {e})")
+            err = max(err, e)
     if err:
         raise AssertionError(f"lock_grant disagrees with its plain version "
                              f"(max_abs_err {err})")
-    # device time per call, from CUDA graph replays; the host-issued
-    # rate beside it is what the eager step loop sees
-    ms = graph_ms(lambda: ops.lock_grant_cuda(*main))
-    plain_ms = graph_ms(lambda: lock_grant_ref(*main))
-    print(f"lock_grant eager (host-issued) at N={n_main}: kernel wrapper "
-          f"{eager_ms(lambda: ops.lock_grant_cuda(*main)):.6f} ms, plain "
-          f"{eager_ms(lambda: lock_grant_ref(*main)):.6f} ms")
-    # each input read once (keys, kind, rc: 4 B; wh_free: 1 B), each
-    # output written once (grant: 1 B; req_pos, wbefore, op_pos: 4 B)
-    n_bytes = n_main * (4 + 4 + 1 + 4 + 1 + 4 + 4 + 4)
-    # per entry: 4 compares for the segment flag and kinds, 3 running
-    # sums, the carry select, 6 for the grant test
-    n_ops = n_main * 14
+
+    # device time per call from CUDA graph replays, in turns
+    res = in_turns({name: (lambda fn=fn: fn(*sorted_main))
+                    for name, fn in designs.items()}, graph_ms)
+    print_turns(f"lock_grant sorted form, device time at N={n_main}", res)
+    out = ops.step_output(T, K, main[7], device)
+    sorted_kernel = (lambda *a: ops.lock_grant_cuda(*a)[0])
+    fns = {
+        "fused launch": lambda: ops.lock_grant_step_cuda(*main, out=out),
+        "the chain it replaces (sorted-form kernel)":
+            lambda: engine.grant_chain(*chain_main, sorted_kernel),
+        "launch floor (empty kernel, 1,024 threads)":
+            lambda: ops._launch_floor(device),
+    }
+    dev_res = in_turns(fns, graph_ms)
+    print_turns(f"lock_grant grant pass, device time (graph replay) at "
+                f"T*K = {n_main}", dev_res)
+    fns["eager elementwise op (a & b)"] = lambda: main[2] & main[3]
+    host_res = in_turns(fns, eager_ms)
+    print_turns(f"lock_grant grant pass, host-issued (eager) at "
+                f"T*K = {n_main}", host_res)
+    ms = dev_res["fused launch"][1]
+    plain_ms = graph_ms(lambda: lock_grant_step_ref(*main))
+    # the fused form must read each entry's key, mode, stamp and pending
+    # flag (13 B) and write its grant (1 B), and gather the write holder
+    # and read count (8 B) of each pending entry of a record in the table;
+    # the release mask changes no grant
+    keys, pend = main[0], main[2]
+    n_cand = int((pend & (keys < main[7])).sum())
+    n_bytes = n_main * (13 + 1) + n_cand * 8
+    # per entry: the pending and range tests, a hash, two minima of two
+    # compares each and the decision's six compares
+    n_ops = n_main * 2 + n_cand * 14
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
-    print(f"lock_grant device time at N={n_main}: kernel {ms:.6f} ms, "
-          f"plain {plain_ms:.6f} ms, bound {max(bytes_ms, ops_ms):.9f} ms")
+    print(f"lock_grant fused form at T*K = {n_main} ({n_cand} pending "
+          f"entries in the table): kernel {ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms, bound {max(bytes_ms, ops_ms):.9f} ms "
+          f"({n_bytes} B); host-issued {host_res['fused launch'][1]:.6f} "
+          f"ms a call against {host_res['eager elementwise op (a & b)'][1]:.6f}"
+          f" for one eager elementwise op")
     return dict(
         name="lock_grant",
         route="cuda",
@@ -484,10 +683,36 @@ def random_dependency_edges(n: int, n_units: int, seed: int, device):
     return t(dst, torch.int32), t(src, torch.int32), t(done, torch.bool)
 
 
+def random_rows(T: int, P: int, n_units: int, seed: int, device):
+    """Random inputs of B2's row form: runs of rows of one unit whose
+    predecessor rows differ (so segments join rows), rows with no
+    predecessor and partial rows, and committed flags over the units
+    and the drop row."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    unit = rng.integers(0, n_units, T)
+    run = rng.random(T) < 0.4
+    for t in range(1, T):
+        if run[t]:
+            unit[t] = unit[t - 1]
+    preds = rng.integers(0, n_units, (T, P))
+    preds[rng.random((T, P)) < 0.3] = -1
+    preds[rng.random(T) < 0.1] = -1
+    done = rng.random(n_units + 1) < 0.7
+
+    def t(a, dt=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+
+    return t(unit), t(preds), t(done, torch.bool)
+
+
 def capture_scan(eng_kw, wl_kw, device, max_rounds: int = 1500):
-    """The inputs (slot units, predecessor rows, their committed flags)
-    of the readiness scan with the most live edges in a short run of one
-    full-width batch cell."""
+    """The row form's inputs (slot units, predecessor rows, the committed
+    flags; cloned) of the readiness check with the most live edges in a
+    short run of one full-width batch cell."""
     from repro_torch.core.engine import EngineConfig, run_simulation
     from repro_torch.core.workloads import WorkloadConfig, make_workload
     from repro_torch.kernels.dep_wavefront import ops
@@ -496,12 +721,12 @@ def capture_scan(eng_kw, wl_kw, device, max_rounds: int = 1500):
     most = [-1]
     original = ops.dep_wavefront_rows
 
-    def capture(*args):
+    def capture(*args, **kw):
         live = int((args[1] >= 0).sum())
         if live >= most[0]:
             most[0] = live
             captured[:] = [a.clone() for a in args]
-        return original(*args)
+        return original(*args, **kw)
 
     ops.dep_wavefront_rows = capture
     try:
@@ -519,39 +744,72 @@ def capture_scan(eng_kw, wl_kw, device, max_rounds: int = 1500):
     return captured
 
 
-def check_dep_wavefront(device, sizes=(40, 128, 768, 1000, 1024, 3000, 4096,
-                                       65536, 1 << 20)) -> dict:
-    """Phase 2: dep_wavefront against its plain version, bit-equal, on the
-    scans of the four full-width batch cells and on random edges."""
+def check_dep_wavefront(device, sizes=(1, 40, 128, 768, 1000, 2048, 3000,
+                                       4096, 4097, 65536, 1 << 20)) -> dict:
+    """Phase 2: B2 against its plain versions, bit-equal: the row form on
+    the readiness check of each of the four full-width batch cells (also
+    against the dense check) and on random rows (runs of one unit with
+    differing rows, T up to 1,500 rows), the grouped-edge form and its
+    earlier design on those checks' edges and on random grouped edges up
+    to 2^20, the whole wrapper against the dense oracle. Then times, in
+    turns: the grouped-edge form against its earlier design, the row
+    form against the eager chain it replaces and the dense plain path
+    (graph replay and host-issued), the launch floor."""
     import torch
 
     from repro_torch.core.lockgrant import KEY_SENTINEL
     from repro_torch.kernels.dep_wavefront import ops
-    from repro_torch.kernels.dep_wavefront.ref import dep_wavefront_ref
+    from repro_torch.kernels.dep_wavefront.ref import (
+        dep_wavefront_ref,
+        dep_wavefront_rows_ref,
+    )
 
-    kernel = ops.dep_wavefront_sorted
     err = 0
-    shapes = {}
-    for name, eng_kw, wl_kw in BATCH_CELLS:
-        row_unit, preds, src_ok = capture_scan(eng_kw, wl_kw, device)
+    designs = {"kernel": ops.dep_wavefront_cuda,
+               "earlier design": ops._dep_wavefront_tile}
+
+    def hold_grouped(label, args):
+        want = dep_wavefront_ref(*args)
+        e = max(max_abs_err(fn(*args), want) for fn in designs.values())
+        print(f"dep_wavefront grouped edges: {label}: kernel and earlier "
+              f"design bit-equal (max_abs_err {e})")
+        return e
+
+    def edges_of(row_unit, preds, done):
         dst = torch.where(preds >= 0, row_unit[:, None],
                           KEY_SENTINEL).reshape(-1)
-        ok = src_ok.reshape(-1)
-        e_cell = dst.shape[0]
-        live = int((dst != KEY_SENTINEL).sum())
-        e = max_abs_err(kernel(dst, ok), dep_wavefront_ref(dst, ok))
-        dense = ((preds < 0) | src_ok).all(dim=1)
-        e = max(e, max_abs_err((ops.dep_wavefront_rows(row_unit, preds,
-                                                       src_ok),), (dense,)))
-        print(f"dep_wavefront: E={e_cell} edges ({live} live, "
-              f"T={preds.shape[0]} rows of P={preds.shape[1]}) of a "
-              f"full-width {name} scan: bit-equal, the engine's row form "
-              f"equal to the dense check (max_abs_err {e})")
-        err = max(err, e)
-        shapes[name] = (dst, ok, row_unit, preds, src_ok)
+        ok = done[torch.clamp(preds, 0, done.shape[0] - 1).long()]
+        return dst, ok.reshape(-1)
+
+    shapes = {}
+    for name, eng_kw, wl_kw in BATCH_CELLS:
+        row_unit, preds, done = capture_scan(eng_kw, wl_kw, device)
+        T, P = preds.shape
+        live = int((preds >= 0).sum())
+        got = ops.dep_wavefront_rows_cuda(row_unit, preds, done)
+        dense = ((preds < 0) | done[torch.clamp(preds, min=0).long()]).all(1)
+        e = max(max_abs_err((got,), (dep_wavefront_rows_ref(
+            row_unit, preds, done),)), max_abs_err((got,), (dense,)))
+        print(f"dep_wavefront row form: the check with the most live edges "
+              f"of a full-width {name} run (T={T} rows of P={P}, E={T * P}, "
+              f"{live} live): bit-equal to its plain version and to the "
+              f"dense check (max_abs_err {e})")
+        err = max(err, e, hold_grouped(f"that check's E={T * P} edges",
+                                       edges_of(row_unit, preds, done)))
+        shapes[name] = (row_unit, preds, done)
+    for i, (t, p, nu) in enumerate(((1, 1, 2), (40, 1, 30), (128, 1, 100),
+                                    (256, 3, 200), (256, 8, 200),
+                                    (1500, 3, 400), (3000, 2, 50))):
+        for seed in range(2):
+            args = random_rows(t, p, nu, 10 * i + seed, device)
+            got = ops.dep_wavefront_rows_cuda(*args)
+            e = max_abs_err((got,), (dep_wavefront_rows_ref(*args),))
+            print(f"dep_wavefront row form: random T={t} rows of P={p}: "
+                  f"bit-equal (max_abs_err {e})")
+            err = max(err, e)
     for i, n in enumerate(sizes):
-        args = random_grouped_edges(n, seed=i, device=device)
-        e = max_abs_err(kernel(*args), dep_wavefront_ref(*args))
+        err = max(err, hold_grouped(f"random E={n}", random_grouped_edges(
+            n, seed=i, device=device)))
         n_units = max(n // 8, 2)
         edst, esrc, done = random_dependency_edges(n, n_units, seed=i,
                                                    device=device)
@@ -564,42 +822,70 @@ def check_dep_wavefront(device, sizes=(40, 128, 768, 1000, 1024, 3000, 4096,
         oracle.scatter_reduce_(
             0, torch.where(live_e, edst, n_units).long(),
             done[esrc.long()].to(torch.int32), "amin", include_self=True)
-        e = max(e, max_abs_err((got,), (plain.to(device),)),
+        e = max(max_abs_err((got,), (plain.to(device),)),
                 max_abs_err((got,), (oracle[:n_units] > 0,)))
-        print(f"dep_wavefront: random E={n}: grouped edges and the whole "
-              f"wrapper ({n_units} units) bit-equal (max_abs_err {e})")
+        print(f"dep_wavefront: random E={n}: the whole wrapper ({n_units} "
+              f"units) bit-equal to its plain run and the dense oracle "
+              f"(max_abs_err {e})")
         err = max(err, e)
     if err:
         raise AssertionError(f"dep_wavefront disagrees with its plain version "
                              f"(max_abs_err {err})")
-    # device time at every main-path shape; the JSON row takes the largest
-    for name, (dst, ok, row_unit, preds, src_ok) in shapes.items():
-        ms = graph_ms(lambda: ops.dep_wavefront_cuda(dst, ok))
-        plain_ms = graph_ms(lambda: dep_wavefront_ref(dst, ok))
-        rows_ms = graph_ms(
-            lambda: ops.dep_wavefront_rows(row_unit, preds, src_ok))
-        dense_ms = graph_ms(lambda: ((preds < 0) | src_ok).all(dim=1))
-        print(f"dep_wavefront device time at E={dst.shape[0]} ({name}): "
-              f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms; the engine's "
-              f"stage 4: kernel path (rows) {rows_ms:.6f} ms, plain path "
-              f"(dense) {dense_ms:.6f} ms")
-        shapes[name] += (ms, plain_ms)
-    name = max(shapes, key=lambda k: shapes[k][0].shape[0])
-    dst, ok, _, _, _, ms, plain_ms = shapes[name]
-    e_main = dst.shape[0]
-    print(f"dep_wavefront eager (host-issued) at E={e_main}: kernel wrapper "
-          f"{eager_ms(lambda: ops.dep_wavefront_cuda(dst, ok)):.6f} ms, plain "
-          f"{eager_ms(lambda: dep_wavefront_ref(dst, ok)):.6f} ms")
-    # each input read once (dst: 4 B, src_ok: 1 B), each output written
-    # once (miss, pos: 4 B each)
-    n_bytes = e_main * (4 + 1 + 4 + 4)
-    # per edge: the segment flag and the padding test, the miss test, two
-    # running sums, the carry select
-    n_ops = e_main * 6
+
+    def chain(row_unit, preds, done):
+        """The kernel path's stage 4 before the row form: the gather, the
+        where, the grouped-edge kernel, the per-row amax, the compare."""
+        src_ok = done[torch.clamp(preds, min=0).long()]
+        edge_dst = torch.where(preds >= 0, row_unit[:, None], KEY_SENTINEL)
+        miss, _pos = ops.dep_wavefront_cuda(edge_dst.reshape(-1),
+                                            src_ok.reshape(-1))
+        return miss.view(preds.shape).amax(dim=1) == 0
+
+    def dense(row_unit, preds, done):
+        return ((preds < 0) | done[torch.clamp(preds, min=0).long()]).all(1)
+
+    rows = {}
+    for name, (row_unit, preds, done) in shapes.items():
+        E = preds.numel()
+        edges = edges_of(row_unit, preds, done)
+        res = in_turns({n_: (lambda fn=fn: fn(*edges))
+                        for n_, fn in designs.items()}, graph_ms)
+        print_turns(f"dep_wavefront grouped edges, device time at E={E} "
+                    f"({name})", res)
+        out = ops.rows_output(*preds.shape, done.shape[0], device)
+        args = (row_unit, preds, done)
+        fns = {
+            "row form": lambda: ops.dep_wavefront_rows_cuda(*args, out=out),
+            "the chain it replaces": lambda: chain(*args),
+            "the dense plain path": lambda: dense(*args),
+            "launch floor (empty kernel, 1,024 threads)":
+                lambda: ops._launch_floor(device),
+        }
+        dev_res = in_turns(fns, graph_ms)
+        print_turns(f"dep_wavefront stage 4, device time (graph replay) at "
+                    f"E={E} ({name})", dev_res)
+        host_res = in_turns(fns, eager_ms)
+        print_turns(f"dep_wavefront stage 4, host-issued (eager) at E={E} "
+                    f"({name})", host_res)
+        rows[name] = (E, dev_res["row form"][1], args)
+    # the JSON row: the largest main-path shape (quecc)
+    name = max(rows, key=lambda k: rows[k][0])
+    E, ms, (row_unit, preds, done) = rows[name]
+    plain_ms = graph_ms(lambda: dep_wavefront_rows_ref(row_unit, preds,
+                                                       done))
+    T = preds.shape[0]
+    live = int((preds >= 0).sum())
+    # each pred read once (4 B) and each row's unit (4 B), the committed
+    # flag of each live edge gathered (1 B), each row's verdict written
+    n_bytes = E * 4 + T * 4 + live + T
+    # per edge: the liveness test, the miss test, the segment flag and a
+    # running sum; per row the verdict
+    n_ops = E * 4 + T * 3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
-    print(f"dep_wavefront at E={e_main} ({name}): kernel {ms:.6f} ms, plain "
-          f"{plain_ms:.6f} ms, bound {max(bytes_ms, ops_ms):.9f} ms")
+    print(f"dep_wavefront row form at E={E} ({name}, {live} live edges): "
+          f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.9f} ms ({n_bytes} B)")
     return dict(
         name="dep_wavefront",
         route="cuda",
@@ -1661,10 +1947,11 @@ def main_path_slice1(device) -> int:
     if fingerprint(res_k, True) != fingerprint(res_j, True):
         raise AssertionError("kernel and plain ORTHRUS runs diverged")
     print("orthrus: kernel and plain fingerprints identical (metrics incl.)")
-    profile_steps("orthrus", ORTHRUS_FULL, wl, device)
-    profile_steps("orthrus plain", dict(ORTHRUS_FULL, kernel_impl="jnp"), wl,
-                  device)
-    profile_steps("deadlock_free", DF_FULL, wl, device)
+    profile_steps("orthrus", {
+        "kernel path": ORTHRUS_FULL,
+        "plain path": dict(ORTHRUS_FULL, kernel_impl="jnp")}, wl, device,
+        watch="lock_grant")
+    profile_steps("deadlock_free", {"(no kernel)": DF_FULL}, wl, device)
     return launches
 
 
@@ -1702,11 +1989,13 @@ def main_path_slice2(device) -> int:
               f"(metrics incl.)")
     if total != ops.launches:
         raise AssertionError("dep_wavefront launched outside the runs")
-    profile_steps("dgcc", DGCC_FULL, workloads["dgcc"], device, warm=300)
-    profile_steps("dgcc plain", dict(DGCC_FULL, kernel_impl="jnp"),
-                  workloads["dgcc"], device, warm=300)
-    profile_steps("quecc_frag_pipe", QUECC_FRAG_PIPE_FULL,
-                  workloads["quecc_frag_pipe"], device, warm=300)
+    profile_steps("dgcc", {
+        "kernel path": DGCC_FULL,
+        "plain path": dict(DGCC_FULL, kernel_impl="jnp")},
+        workloads["dgcc"], device, warm=300, watch="dep_wavefront")
+    profile_steps("quecc_frag_pipe", {"kernel path": QUECC_FRAG_PIPE_FULL},
+                  workloads["quecc_frag_pipe"], device, warm=300,
+                  watch="dep_wavefront")
     return total
 
 
@@ -2158,12 +2447,18 @@ def main_path_slice5(device, model) -> dict:
         SERVE_REQUESTS, FIRST_LOGIT_TOL, mixtral_first_token_logits)
 
 
-def profile_steps(name, eng_kw, workload, device, warm: int = 100,
-                  timed: int = 200, profiled: int = 20) -> None:
-    """Where a full-width step's time goes: wall ms per step as the host
-    loop runs it (one read of ``r`` per step), and under torch.profiler
-    the CUDA kernels per step, their device ms per step, and the top
-    kernels by device time."""
+def profile_steps(name, paths: dict, workload, device, warm: int = 100,
+                  timed: int = 200, profiled: int = 20,
+                  watch: str | None = None) -> None:
+    """Where a full-width step's time goes, for each path of one cell
+    (``paths``: label -> engine kwargs, e.g. the kernel and the plain
+    path): wall ms per step as the host loop runs it (one read of ``r``
+    per step), timed in turns (the paths in order, then in reverse, three
+    times, each path's state carried on, so all cover the same rounds;
+    the host's rate drifts within a call); then under
+    torch.profiler the CUDA kernels per step, their device ms per step
+    and the top kernels by device time; with ``watch``, the launches per
+    step of the kernels whose names hold it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2171,47 +2466,69 @@ def profile_steps(name, eng_kw, workload, device, warm: int = 100,
     from repro_torch.core import engine
     from repro_torch.core.convert import plan_from_numpy
 
-    cfg = engine.EngineConfig(**eng_kw, **SIM_FULL)
-    plan = engine.make_plan(cfg, workload)
-    meta = engine.plan_meta(cfg, plan)
-    p = plan_from_numpy(engine.plan_device(cfg, plan), device)
-    batch = cfg.is_batch_planned
-    if batch:
-        s = engine._batch_state0(cfg, plan, cfg.n_slots, device)
-        step = engine.make_batch_step(cfg, meta, device)
-    else:
-        s = engine._state0(cfg, plan.num_records, cfg.n_slots,
-                           meta.max_keys, device)
-        step = engine.make_step(cfg, meta, device)
     r_end = torch.tensor(SIM_FULL["max_rounds"], dtype=torch.int32,
                          device=device)
+    runs = {}
+    for label, eng_kw in paths.items():
+        cfg = engine.EngineConfig(**eng_kw, **SIM_FULL)
+        plan = engine.make_plan(cfg, workload)
+        meta = engine.plan_meta(cfg, plan)
+        p = plan_from_numpy(engine.plan_device(cfg, plan), device)
+        batch = cfg.is_batch_planned
+        if batch:
+            s = engine._batch_state0(cfg, plan, cfg.n_slots, device)
+            step = engine.make_batch_step(cfg, meta, device)
+        else:
+            s = engine._state0(cfg, plan.num_records, cfg.n_slots,
+                               meta.max_keys, device)
+            step = engine.make_step(cfg, meta, device)
+        runs[label] = dict(p=p, s=s, step=step, batch=batch)
 
-    def run(n):
-        nonlocal s
+    def run(label, n):
+        st = runs[label]
         for _ in range(n):
-            s = step(p, s if batch else engine.rebase_enq(s), r_end)
-            int(s["r"])
+            st["s"] = st["step"](
+                st["p"], st["s"] if st["batch"] else engine.rebase_enq(
+                    st["s"]), r_end)
+            int(st["s"]["r"])
 
-    run(warm)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run(timed)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / timed * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(profiled)
+    def wall(label):
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    n_kernels = sum(e.count for e in kern) / profiled
-    dev_ms = sum(e.self_device_time_total for e in kern) / profiled / 1e3
-    if n_kernels <= 0:
-        raise AssertionError(f"{name}: the profiler saw no CUDA kernel")
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-    print(f"profile {name} (rounds {int(s['r'])}): wall {wall_ms:.4f} ms/step, "
-          f"{n_kernels:.1f} CUDA kernels/step, device {dev_ms:.4f} ms/step, "
-          f"device busy share {dev_ms / wall_ms:.4f}; top kernels: "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / profiled:.1f} us"
-                      for e in top))
+        t0 = time.perf_counter()
+        run(label, timed)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / timed * 1e3
+
+    for label in paths:
+        run(label, warm)
+    walls = in_turns({label: label for label in paths}, wall, rounds=3)
+    for label in paths:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(label, profiled)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        n_kernels = sum(e.count for e in kern) / profiled
+        dev_ms = sum(e.self_device_time_total for e in kern) / profiled / 1e3
+        if n_kernels <= 0:
+            raise AssertionError(f"{name} {label}: the profiler saw no CUDA "
+                                 f"kernel")
+        readings, wall_ms = walls[label]
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+        watched = ""
+        if watch:
+            n_watch = sum(e.count for e in kern if watch in e.key) / profiled
+            watched = f", {watch} {n_watch:.2f} launches/step"
+        print(f"profile {name} {label} (rounds {int(runs[label]['s']['r'])}"
+              f"): wall {wall_ms:.4f} ms/step (turns "
+              f"{' / '.join(f'{w:.4f}' for w in readings)}), "
+              f"{n_kernels:.1f} CUDA kernels/step, device {dev_ms:.4f} "
+              f"ms/step, device busy share {dev_ms / wall_ms:.4f}{watched}; "
+              f"top "
+              f"kernels: " + "; ".join(
+                  f"{e.key[:60]} {e.self_device_time_total / profiled:.1f} "
+                  f"us ({e.count / profiled:.2f}/step)" for e in top))
 
 
 def gpu_name_and_power() -> str:
@@ -2236,7 +2553,9 @@ def build_kernels() -> None:
 
     t0 = time.time()
     builds = {"lock_grant": lg_ops._library,
+              "lock_grant_tile": lg_ops._tile_library,
               "dep_wavefront": dw_ops._library,
+              "dep_wavefront_tile": dw_ops._tile_library,
               "flash_attention": fa_ops._library,
               "flash_attention_simt": fa_ops._simt_library,
               "rwkv6_scan": rw_ops._library,
@@ -2249,8 +2568,9 @@ def build_kernels() -> None:
         secs, log = _build.BUILD_LOG.get(name, (0.0, "(cached)"))
         print(f"build: lib{name} in {secs:.3f} s\n{log.strip()}")
     print(f"build: all five kernels (B4 as two libraries: bf16 on the "
-          f"tensor cores, f32 on the CUDA cores; B5 beside its earlier "
-          f"design) built and loaded in {time.time() - t0:.3f} s")
+          f"tensor cores, f32 on the CUDA cores; B1, B2 and B5 beside "
+          f"their earlier designs) built and loaded in "
+          f"{time.time() - t0:.3f} s")
 
 
 def main() -> int:

@@ -645,6 +645,51 @@ def _state0(cfg: EngineConfig, num_records: int, T: int, K: int,
     return s
 
 
+def grant_chain(keys, modes, pend2d, rel_entries, enq, wh_r, rc_r, ent_slot,
+                kind_consts, grant_sorted):
+    """The ORTHRUS grant decision of one round (stage 7 of
+    :func:`make_step`) as a chain of eager ops around ``grant_sorted``,
+    the segmented grant over entries sorted by (key, stamp): entry kinds
+    and keys, the lock-table gathers (``wh_r`` and ``rc_r`` hold the R
+    records; keys past them read as write-held with no readers), the
+    stable sort, the grant, the unsort and the re-entrant grant.
+    ``ent_slot`` is each entry's slot, int32 [T * K], and
+    ``kind_consts`` the int32 scalars REQ_WRITE, REQ_READ, REQ_RELEASE
+    and REQ_NONE on the device (made once by the caller). Returns bool
+    [T, K]. The plain path runs it with ``sorted_grant``, the kernel
+    path above lock_grant's fused capacity with the kernel; below it the
+    fused kernel takes the whole chain's place."""
+    T, K = keys.shape
+    R = wh_r.shape[0]
+    c_write, c_read, c_release, c_none = kind_consts
+    ent_kind = torch.where(
+        pend2d,
+        torch.where(modes == MODE_WRITE, c_write, c_read),
+        torch.where(rel_entries, c_release, c_none),
+    ).reshape(-1)
+    ent_key = torch.where(pend2d | rel_entries, keys, KEY_SENTINEL).reshape(-1)
+    ent_enq = enq.reshape(-1)
+    safe = torch.clamp(ent_key, max=R - 1).long()
+    in_rng = ent_key < R
+    wh_ent = wh_r[safe]
+    wh_free = (wh_ent == -1) & in_rng
+    rcv = torch.where(in_rng, rc_r[safe], 0)
+    order = lex_order(ent_key, ent_enq)
+    g_sorted = grant_sorted(
+        ent_key[order], ent_kind[order], wh_free[order], rcv[order]
+    )
+    grant = torch.empty_like(g_sorted)
+    grant[order] = g_sorted  # unsort
+    # re-entrant grants bypass the FIFO
+    self_grant = (
+        (ent_kind != REQ_NONE)
+        & (ent_kind != REQ_RELEASE)
+        & in_rng
+        & (wh_ent == ent_slot)
+    )
+    return (grant | self_grant).view(T, K)
+
+
 def make_step(cfg: EngineConfig, meta: PlanMeta,
               device: torch.device | str = "cuda"):
     """Build the single-round transition for this config and plan shape.
@@ -685,8 +730,8 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     lane2d = lane_of[:, None].expand(T, K)
     # within-slot key order (stage 4): [1, K, K] "column j before column i"
     k_before = (kk[None, None, :] < kk[None, :, None])
-    c_write, c_read = const(REQ_WRITE), const(REQ_READ)
-    c_release, c_none = const(REQ_RELEASE), const(REQ_NONE)
+    kind_consts = tuple(map(const, (REQ_WRITE, REQ_READ, REQ_RELEASE,
+                                    REQ_NONE)))
     c_zero, c_one = const(0), const(1)
     c_wait, c_msg, c_idle = const(CAT_WAIT), const(CAT_MSG), const(CAT_IDLE)
     c_exec = const(CAT_EXEC)
@@ -697,15 +742,21 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     exec_cycles_per_op = cm.exec_op_cycles + (
         cm.shared_index_penalty_cycles if shared_index else 0
     )
-    # the grant decision over the sorted entries: the lock_grant kernel
-    # (its plain version for CPU tensors) or the plain formulation
+    # the grant decision (stage 7): on the kernel path the whole pass is
+    # one launch of lock_grant's fused form up to its capacity, its
+    # output allocated here once; above it the sorted form runs between
+    # the engine's own sort and unsort. The plain path runs the plain
+    # formulation. CPU tensors take each wrapper's plain version.
+    grant_out = None
+    grant_sorted = sorted_grant
     if orthrus and use_kernel(cfg.kernel_impl, dev):
-        from repro_torch.kernels.lock_grant.ops import lock_grant_sorted
+        from repro_torch.kernels.lock_grant import ops as lg_ops
 
-        def grant_sorted(keys, kind, wh_free, rc):
-            return lock_grant_sorted(keys, kind, wh_free, rc)[0]
-    else:
-        grant_sorted = sorted_grant
+        if T * K <= lg_ops.STEP_CAPACITY:
+            grant_out = lg_ops.step_output(T, K, R, dev)
+        else:
+            def grant_sorted(keys, kind, wh_free, rc):
+                return lg_ops.lock_grant_sorted(keys, kind, wh_free, rc)[0]
 
     def rounds_of(cyc):
         return (cyc + cm.cycles_per_round - 1) // cm.cycles_per_round
@@ -908,36 +959,16 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
         newop2d = want_new | rel_entries
         wh_r, rc_r = s["wh"][:R], s["rc"][:R]
         if orthrus:
-            ent_kind = torch.where(
-                pend2d,
-                torch.where(modes == MODE_WRITE, c_write, c_read),
-                torch.where(rel_entries, c_release, c_none),
-            ).reshape(-1)
-            ent_key = torch.where(
-                pend2d | rel_entries, keys, KEY_SENTINEL
-            ).reshape(-1)
-            ent_enq = s["enq"].reshape(-1)
-            safe = torch.clamp(ent_key, max=R - 1).long()
-            in_rng = ent_key < R
-            wh_ent = wh_r[safe]
-            wh_free = (wh_ent == -1) & in_rng
-            rcv = torch.where(in_rng, rc_r[safe], 0)
-            order = lex_order(ent_key, ent_enq)
-            g_sorted = grant_sorted(
-                ent_key[order], ent_kind[order], wh_free[order], rcv[order]
-            )
-            grant = torch.empty_like(g_sorted)
-            grant[order] = g_sorted  # unsort
-            grant = grant.view(T, K)
-            # re-entrant grants bypass the FIFO
-            self_grant = (
-                (ent_kind != REQ_NONE)
-                & (ent_kind != REQ_RELEASE)
-                & in_rng
-                & (wh_ent == ent_slot)
-            )
-            grant = grant | self_grant.view(T, K)
-
+            if grant_out is not None:
+                # one launch: kinds, keys, table gathers, grant, self-grant
+                grant = lg_ops.lock_grant_step(
+                    keys, modes, pend2d, rel_entries, s["enq"], s["wh"],
+                    s["rc"], R, out=grant_out,
+                )
+            else:
+                grant = grant_chain(keys, modes, pend2d, rel_entries,
+                                    s["enq"], wh_r, rc_r, ent_slot,
+                                    kind_consts, grant_sorted)
             # apply grants to the lock table
             gk = torch.where(grant, keys, 0)
             g_wr = grant & (modes == MODE_WRITE)
@@ -1410,9 +1441,9 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
     admitted while the current batch drains.
 
     Stage 4, "all planned predecessors committed", is the dep_wavefront
-    scan: the CUDA kernel (its plain version for CPU tensors) over the
-    slot rows' edges when ``use_kernel(cfg.kernel_impl, device)``, else
-    the dense per-slot gather.
+    row form: one launch of the CUDA kernel (its plain version for CPU
+    tensors) over the slot rows' edges when ``use_kernel(cfg.kernel_impl,
+    device)``, else the dense per-slot gather.
     """
     check_ported(cfg)
     dev = torch.device(device)
@@ -1441,10 +1472,13 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
         cm.shared_index_penalty_cycles if shared_index else 0
     )
     P = meta.frag_pred_width if frag else meta.pred_width
+    # stage 4 on the kernel path: one launch of dep_wavefront's row form,
+    # its output allocated here once
+    rows_out = None
     if use_kernel(cfg.kernel_impl, dev) and P > 0:
-        from repro_torch.kernels.dep_wavefront.ops import dep_wavefront_rows
-    else:
-        dep_wavefront_rows = None
+        from repro_torch.kernels.dep_wavefront import ops as dw_ops
+
+        rows_out = dw_ops.rows_output(T, P, NU + 1, dev)
 
     def rounds_of(cyc):
         return (cyc + cm.cycles_per_round - 1) // cm.cycles_per_round
@@ -1636,9 +1670,10 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
         phase = torch.where(got, READY, phase)
 
         # -------------------------------------------- 4. wavefront check
-        if dep_wavefront_rows is not None:
-            # the scan over the slot rows' edges, grouped by row
-            dep_ok = dep_wavefront_rows(widx, preds, done[preds0])
+        if rows_out is not None:
+            # gathers done[preds], scans the rows' edges grouped by row
+            dep_ok = dw_ops.dep_wavefront_rows(widx, preds, done,
+                                               out=rows_out)
         else:
             dep_ok = ((preds < 0) | done[preds0]).all(dim=1)
         ready = (phase == READY) & dep_ok

@@ -1,16 +1,27 @@
-"""Wrappers of the dep_wavefront kernel.
+"""Wrappers of the dep_wavefront kernels (B2).
+
+``dep_wavefront_rows`` is the engine's form, the batch engine's stage 4
+in one launch: from the slots' units, their predecessor rows and the
+committed flags, whether every predecessor of each row has committed
+(``csrc/dep_wavefront.cu``, ``dep_wavefront_rows_kernel``, for CUDA
+tensors; ``ref.dep_wavefront_rows_ref`` for CPU tensors). The engine
+checks the static shapes and allocates the output once (``rows_output``)
+and passes it as ``out``; a call with ``out`` then checks only the
+tensors' devices.
 
 ``dep_wavefront_ready`` keeps the TPU wrapper's whole contract: given a
 batch's dependency edges and the committed bitmap, which units have
 every predecessor committed? It pads, gathers ``done``, sorts the edges
-by dst, runs the segmented scan, broadcasts segment totals and scatters
-them to units. ``dep_wavefront_frag_ready`` adds the fragment commit
-join (``frag_commit_barrier``). The segmented scan is the CUDA kernel
-(``csrc/dep_wavefront.cu``) for a CUDA tensor and its plain version
-(``ref.py``) for a CPU tensor.
+by dst, runs the segmented scan (``dep_wavefront_sorted``: the kernel's
+own contract, ``dep_wavefront_kernel``, any E), broadcasts segment
+totals and scatters them to units. ``dep_wavefront_frag_ready`` adds the
+fragment commit join (``frag_commit_barrier``).
 
-The engine calls ``dep_wavefront_rows``: its edges are already grouped
-by slot row, so it needs neither the sort nor the scatter.
+The earlier design (``csrc/dep_wavefront_tile.cu``: one thread an edge,
+1,024-edge tiles in series) is reached only through the private
+``_dep_wavefront_tile``, and an empty launch of the same build through
+``_launch_floor``; chip_smoke.py times them beside the kernels. Neither
+counts in ``launches``.
 """
 
 from __future__ import annotations
@@ -27,62 +38,101 @@ from repro_torch.core.lockgrant import (
     segment_starts,
 )
 from repro_torch.kernels import _build, device_guard
-from repro_torch.kernels.dep_wavefront.ref import dep_wavefront_ref
+from repro_torch.kernels.dep_wavefront.ref import (
+    dep_wavefront_ref,
+    dep_wavefront_rows_ref,
+)
 
-SOURCES = [Path(__file__).resolve().parent / "csrc" / "dep_wavefront.cu"]
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = [CSRC / "dep_wavefront.cu"]
+TILE_SOURCES = [CSRC / "dep_wavefront_tile.cu"]
 
-# Kernel launches since the last reset (``launches = 0``).
+# Kernel launches since the last reset (``launches = 0``): both forms.
 launches = 0
 
-
 _LIB: ctypes.CDLL | None = None
+_TILE_LIB: ctypes.CDLL | None = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _library() -> ctypes.CDLL:
-    """The built kernel library (built at the first call)."""
+    """The kernels' library (built at the first call)."""
     global _LIB
     if _LIB is None:
         lib = _build.load("dep_wavefront", SOURCES)
-        fn = lib.dep_wavefront_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib.dep_wavefront_launch.argtypes = [_P] * 4 + [_I, _P]
+        lib.dep_wavefront_rows_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        lib.dep_wavefront_empty_launch.argtypes = [_I, _P]
+        for fn in ("dep_wavefront_launch", "dep_wavefront_rows_launch",
+                   "dep_wavefront_empty_launch"):
+            getattr(lib, fn).restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def dep_wavefront_cuda(dst, src_ok):
-    """Launch the kernel on edges grouped by dst (CUDA tensors).
+def _tile_library() -> ctypes.CDLL:
+    """The earlier design's library (built at the first call)."""
+    global _TILE_LIB
+    if _TILE_LIB is None:
+        lib = _build.load("dep_wavefront_tile", TILE_SOURCES)
+        lib.dep_wavefront_tile_launch.argtypes = [_P] * 4 + [_I, _P]
+        lib.dep_wavefront_tile_launch.restype = ctypes.c_int
+        _TILE_LIB = lib
+    return _TILE_LIB
 
-    Same outputs as :func:`dep_wavefront_ref`."""
-    global launches
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _check(name, t, dev, dtype, shape):
+    if t.device != dev or dev.type != "cuda":
+        raise ValueError(f"dep_wavefront: {name} on {t.device}, want {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"dep_wavefront: {name} is {t.dtype}, want {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"dep_wavefront: {name} has shape "
+                         f"{tuple(t.shape)}, want {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"dep_wavefront: {name} is not contiguous")
+
+
+def _grouped_launch(entry, dst, src_ok):
+    """Check the grouped-edge inputs, allocate the outputs and call the C
+    ``entry()`` returns under their device."""
     n = dst.shape[0]
     dev = dst.device
-    for name, t, dt in (("dst", dst, torch.int32),
-                        ("src_ok", src_ok, torch.bool)):
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"dep_wavefront: {name} on {t.device}, want {dev}")
-        if t.dtype != dt:
-            raise TypeError(f"dep_wavefront: {name} is {t.dtype}, want {dt}")
-        if t.shape != (n,):
-            raise ValueError(
-                f"dep_wavefront: {name} has shape {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"dep_wavefront: {name} is not contiguous")
+    _check("dst", dst, dev, torch.int32, (n,))
+    _check("src_ok", src_ok, dev, torch.bool, (n,))
     if n >= 2**31:
         raise ValueError(f"dep_wavefront: {n} edges exceed int32 indexing")
     miss = torch.empty(n, dtype=torch.int32, device=dev)
     pos = torch.empty(n, dtype=torch.int32, device=dev)
     with device_guard(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().dep_wavefront_launch(
-            dst.data_ptr(), src_ok.data_ptr(), miss.data_ptr(), pos.data_ptr(),
-            n, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"dep_wavefront kernel launch failed: CUDA error {err}")
-    launches += 1
+        err = entry()(dst.data_ptr(), src_ok.data_ptr(), miss.data_ptr(),
+                      pos.data_ptr(), n, stream)
+    _raise_on(err, "dep_wavefront")
     return miss, pos
+
+
+def dep_wavefront_cuda(dst, src_ok):
+    """Launch the grouped-edge kernel (CUDA tensors). Same outputs as
+    :func:`dep_wavefront_ref`."""
+    global launches
+    out = _grouped_launch(lambda: _library().dep_wavefront_launch, dst,
+                          src_ok)
+    launches += 1
+    return out
+
+
+def _dep_wavefront_tile(dst, src_ok):
+    """The earlier design (``csrc/dep_wavefront_tile.cu``), timed beside
+    the kernel. Not counted in ``launches``; no path of the port calls
+    it."""
+    return _grouped_launch(lambda: _tile_library().dep_wavefront_tile_launch,
+                           dst, src_ok)
 
 
 def dep_wavefront_sorted(dst, src_ok):
@@ -93,29 +143,77 @@ def dep_wavefront_sorted(dst, src_ok):
     return dep_wavefront_cuda(dst, src_ok)
 
 
-def dep_wavefront_rows(row_unit, preds, src_ok):
-    """The engine's form: bool[T], row t's unit has every predecessor
-    committed.
+def rows_output(T, P, n_done, device) -> torch.Tensor:
+    """The row form's output for T rows of P predecessors over ``n_done``
+    committed flags on ``device``, its static shapes checked: what the
+    engine builds once and passes as ``out``."""
+    if T < 1 or P < 1 or n_done < 1 or T * P >= 2**31 or n_done >= 2**31:
+        raise ValueError(f"dep_wavefront_rows: T = {T}, P = {P}, "
+                         f"{n_done} flags")
+    return torch.empty(T, dtype=torch.bool, device=device)
 
-    Row t holds unit ``row_unit[t]`` and its predecessor row ``preds[t]``
-    (int32[T, P], -1 = none); ``src_ok[t, j]`` says whether ``preds[t,
-    j]`` has committed. The edges go to the scan grouped by row, with no
-    sort: a segment opens wherever dst changes, so it joins two rows only
-    when they hold the same unit, whose rows are identical and get the
-    same verdict; ``miss`` never falls within a segment, so "no edge of
-    the row misses" is the unit's readiness.
 
-    The per-row ``amax`` over ``miss`` makes this form equal to the dense
-    check ``((preds < 0) | src_ok).all(1)``: the segments the kernel
-    counts do not change the verdict, and ``pos`` is unused. A fused
-    stage-4 kernel (gather ``done[preds]``, scan, write the row verdict
-    in one launch) would drop the ``where``, the ``amax``, the compare
-    and the ``pos`` store.
+def dep_wavefront_rows_cuda(row_unit, preds, done, *, out=None):
+    """Launch the row kernel (CUDA tensors): :func:`dep_wavefront_rows_ref`
+    in one launch. With ``out`` (from :func:`rows_output` for these
+    shapes) only the devices are checked; without it everything is, and
+    the output is allocated."""
+    global launches
+    if out is None:
+        dev = row_unit.device
+        if preds.dim() != 2:
+            raise ValueError(f"dep_wavefront_rows: preds has shape "
+                             f"{tuple(preds.shape)}, want [T, P]")
+        T, P = preds.shape
+        _check("row_unit", row_unit, dev, torch.int32, (T,))
+        _check("preds", preds, dev, torch.int32, (T, P))
+        _check("done", done, dev, torch.bool, (done.shape[0],))
+        out = rows_output(T, P, done.shape[0], dev)
+    else:
+        dev = out.device
+        for t in (row_unit, preds, done):
+            if t.device != dev:
+                raise ValueError(f"dep_wavefront_rows: a tensor on "
+                                 f"{t.device}, the output on {dev}")
+    with device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library().dep_wavefront_rows_launch(
+            row_unit.data_ptr(), preds.data_ptr(), done.data_ptr(),
+            out.data_ptr(), out.shape[0], preds.shape[1], done.shape[0],
+            stream,
+        )
+    _raise_on(err, "dep_wavefront_rows")
+    launches += 1
+    return out
+
+
+def dep_wavefront_rows(row_unit, preds, done, *, out=None):
+    """The engine's stage 4, bool [T]: row t's unit has every predecessor
+    committed. The row kernel for CUDA tensors, the plain version for CPU
+    tensors.
+
+    Row t holds unit ``row_unit[t]`` and its predecessors ``preds[t]``
+    (int32 [T, P], -1 = none); ``done`` is the committed flag per unit.
+    The edges go to the scan grouped by row, with no sort: a segment
+    opens wherever dst changes, so it joins two rows only when they hold
+    the same unit, whose rows are identical and get the same verdict;
+    ``miss`` never falls within a segment, so "no edge of the row
+    misses" is the unit's readiness, and equals the dense check
+    ``((preds < 0) | done[preds]).all(1)``.
     """
-    edge_dst = torch.where(preds >= 0, row_unit[:, None], KEY_SENTINEL)
-    miss, _pos = dep_wavefront_sorted(edge_dst.reshape(-1),
-                                      src_ok.reshape(-1))
-    return miss.view(preds.shape).amax(dim=1) == 0
+    if row_unit.device.type == "cpu":
+        return dep_wavefront_rows_ref(row_unit, preds, done)
+    return dep_wavefront_rows_cuda(row_unit, preds, done, out=out)
+
+
+def _launch_floor(device, threads=1024) -> None:
+    """An empty one-block launch from the kernels' library, the launch
+    floor chip_smoke.py times beside them. Not counted in ``launches``."""
+    dev = torch.device(device)
+    with device_guard(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library().dep_wavefront_empty_launch(threads, stream)
+    _raise_on(err, "dep_wavefront_empty")
 
 
 def dep_wavefront_ready(edge_dst, edge_src, done, *, num_txns, block_n=1024):

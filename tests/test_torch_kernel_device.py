@@ -101,9 +101,26 @@ def _launch_lock_grant(dev):
                            torch.zeros(8, **i32))
 
 
+def _launch_lock_grant_step(dev):
+    i32 = dict(dtype=torch.int32, device=dev)
+    mask = dict(dtype=torch.bool, device=dev)
+    lg_ops.lock_grant_step_cuda(
+        torch.zeros(4, 3, **i32), torch.zeros(4, 3, **i32),
+        torch.zeros(4, 3, **mask), torch.zeros(4, 3, **mask),
+        torch.zeros(4, 3, **i32), torch.zeros(9, **i32),
+        torch.zeros(9, **i32), 8)
+
+
 def _launch_dep_wavefront(dev):
     dw_ops.dep_wavefront_cuda(torch.zeros(8, dtype=torch.int32, device=dev),
                               torch.zeros(8, dtype=torch.bool, device=dev))
+
+
+def _launch_dep_wavefront_rows(dev):
+    dw_ops.dep_wavefront_rows_cuda(
+        torch.zeros(8, dtype=torch.int32, device=dev),
+        torch.zeros(8, 2, dtype=torch.int32, device=dev),
+        torch.zeros(5, dtype=torch.bool, device=dev))
 
 
 def _launch_moe_dispatch(dev):
@@ -130,7 +147,11 @@ def _launch_flash_attention(dtype):
 # (wrapper module, launch on a device, the C entry it must reach)
 WRAPPERS = {
     "lock_grant": (lg_ops, _launch_lock_grant, "lock_grant_launch"),
+    "lock_grant_step": (lg_ops, _launch_lock_grant_step,
+                        "lock_grant_step_launch"),
     "dep_wavefront": (dw_ops, _launch_dep_wavefront, "dep_wavefront_launch"),
+    "dep_wavefront_rows": (dw_ops, _launch_dep_wavefront_rows,
+                           "dep_wavefront_rows_launch"),
     "moe_dispatch": (md_ops, _launch_moe_dispatch, "moe_dispatch_launch"),
     "rwkv6_scan": (rw_ops, _launch_rwkv6_scan, "rwkv6_scan_launch"),
     "flash_attention_bf16": (fa_ops, _launch_flash_attention(torch.bfloat16),
@@ -165,9 +186,15 @@ def test_launch_on_the_current_device_switches_nothing(fake_cuda, name):
 
 def _card_cases(dev):
     """(name, kernel call, plain call) of each kernel on ``dev``."""
-    from repro_torch.kernels.dep_wavefront.ref import dep_wavefront_ref
+    from repro_torch.kernels.dep_wavefront.ref import (
+        dep_wavefront_ref,
+        dep_wavefront_rows_ref,
+    )
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.lock_grant.ref import lock_grant_ref
+    from repro_torch.kernels.lock_grant.ref import (
+        lock_grant_ref,
+        lock_grant_step_ref,
+    )
     from repro_torch.kernels.moe_dispatch.ref import dispatch_slots_ref
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -187,11 +214,27 @@ def _card_cases(dev):
     s0 = torch.zeros(1, 2, 16, 16, device=dev)
     qkv = [(torch.randn(1, 100, h, 64, generator=g) * 0.5).to(
         torch.bfloat16).to(dev) for h in (4, 2, 2)]
+    step = [torch.randint(0, 12, (30, 10), generator=g).to(torch.int32),
+            torch.randint(0, 2, (30, 10), generator=g).to(torch.int32),
+            torch.rand(30, 10, generator=g) < 0.5,
+            torch.rand(30, 10, generator=g) < 0.1,
+            torch.randint(-3, 40, (30, 10), generator=g).to(torch.int32),
+            torch.randint(-1, 30, (11,), generator=g).to(torch.int32),
+            torch.randint(0, 2, (11,), generator=g).to(torch.int32)]
+    step = [t.to(dev) for t in step]
+    preds = torch.randint(-1, 20, (60, 3), generator=g).to(torch.int32).to(
+        dev)
+    units = torch.randint(0, 20, (60,), generator=g).to(torch.int32).to(dev)
     return [
         ("lock_grant", lambda: lg_ops.lock_grant_cuda(keys, kind, wh_free, rc),
          lambda: lock_grant_ref(keys, kind, wh_free, rc)),
+        ("lock_grant_step", lambda: lg_ops.lock_grant_step_cuda(*step, 10),
+         lambda: lock_grant_step_ref(*step, 10)),
         ("dep_wavefront", lambda: dw_ops.dep_wavefront_cuda(keys, ok),
          lambda: dep_wavefront_ref(keys, ok)),
+        ("dep_wavefront_rows", lambda: dw_ops.dep_wavefront_rows_cuda(
+            units, preds, ok[:21]),
+         lambda: dep_wavefront_rows_ref(units, preds, ok[:21])),
         ("moe_dispatch", lambda: md_ops.dispatch_positions_cuda(experts, 16, 8),
          lambda: dispatch_slots_ref(experts, 16, 8)),
         ("rwkv6_scan", lambda: rw_ops.rwkv6_scan_cuda(*rwkv, w, u, s0),
