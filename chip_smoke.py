@@ -84,7 +84,7 @@ Phases (each raises on failure; the script then exits non-zero):
                the share of (token, layer) top-2 choices on which the two
                paths agree and the share of routed entries each layer
                drops at capacity; the same readings and profile as
-               slice 3.
+               slice 3, and a profile of the plain path.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -112,12 +112,16 @@ prompt lengths of 600-3,000 tokens, beside the plain version and the
 bound, and sweeps the kernel's built tiles at both shapes. It holds
 flash_attention at mixtral's layout (6 query heads per KV head of 128)
 on every layer of a real full-width MIXTRAL_CHECK_SEQ-token
-mixtral-8x22b prefill too, and
-moe_dispatch bit-equal to its plain version on the sorted expert ids of
-every layer of that prefill and of a real decode step at 8 slots and on
-random sorted ids with a -1 tail (N = 1 .. 2^20), and the whole
-kernel-backed plan equal to the plain plan on the captured router
-probabilities; it times both, and both plans.
+mixtral-8x22b prefill too. It holds moe_dispatch's fused plan (top-k,
+positions, dispatch table and load in one launch) bit-equal to the plain
+plan on the router probabilities of every layer of that prefill and of
+a real decode step at 8 slots, and on random ones (N = 1 .. 65,536, E
+4, 8 and 128, top 1 and 2, rows with ties, capacities that drop and that
+do not), and its sorted form bit-equal to its plain version on those
+layers' sorted expert ids and on random sorted ids with a -1 tail (N =
+1 .. 2^20); in turns, it times the fused launch against the eager chain
+around the sorted form and the plain plan, and counts the CUDA kernels
+of a plan on each.
 
 Each path sets the kernels' launch counts to 0 just before it and reads
 them just after. Then it prints the kernels' JSON line, the card's name
@@ -476,14 +480,15 @@ def print_turns(what: str, res: dict) -> None:
               for name, (v, m) in res.items()))
 
 
-def scan_build_report() -> None:
-    """B1's and B2's builds, per kernel of each library and of the
-    earlier designs': registers, shared memory and spills (0 required),
-    from nvcc's -Xptxas -v."""
+def scan_build_report(names=("lock_grant", "lock_grant_tile",
+                             "dep_wavefront", "dep_wavefront_tile",
+                             "moe_dispatch")) -> None:
+    """B1's, B2's and B3's builds (the libraries ``names``), per kernel of
+    each library and of the earlier designs': registers, shared memory
+    and spills (0 required), from nvcc's -Xptxas -v."""
     from repro_torch.kernels import _build
 
-    for name in ("lock_grant", "lock_grant_tile", "dep_wavefront",
-                 "dep_wavefront_tile"):
+    for name in names:
         if name not in _build.BUILD_LOG:
             print(f"build: {name} was built before this run (cached in "
                   f"{_build.BUILD_DIR}): no ptxas report")
@@ -498,7 +503,7 @@ def scan_build_report() -> None:
                     f"stores {stores} B, spill loads {loads} B")
             print(f"build: {what}")
             if stores != 0 or loads != 0:
-                raise AssertionError(f"B1/B2 spills: {what}")
+                raise AssertionError(f"B1/B2/B3 spills: {what}")
 
 
 def check_lock_grant(device, sizes=(1, 1024, 2560, 4096, 4097, 65536,
@@ -1666,21 +1671,19 @@ def capture_calls(targets, run):
 
 def capture_mixtral(device, model) -> dict:
     """The kernel path's inputs at every layer of mixtral-8x22b: B4's
-    (q, k, v, kind, window), B3's (sorted ids, capacity, experts) and
-    the plan's (router probabilities, top_k, capacity), of one
-    MIXTRAL_CHECK_SEQ-token prefill and of one decode step at SERVE_SLOTS
-    slots (after prefills of the serving phase's first 8 prompts)."""
+    (q, k, v, kind, window) and B3's plan's (router probabilities, top_k,
+    capacity), of one MIXTRAL_CHECK_SEQ-token prefill and of one decode
+    step at SERVE_SLOTS slots (after prefills of the serving phase's
+    first 8 prompts)."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.moe_dispatch import ops as md_ops
     from repro_torch.models import layers
     from repro_torch.models import model as M
     from repro_torch.models import moe
     from repro_torch.serve import Request, ServeConfig, ServingEngine
 
     cfg, params = model
-    decode_n = SERVE_SLOTS * cfg.experts_per_token
     prompt = np.random.default_rng(SEED + 1).integers(
         2, cfg.vocab_size, MIXTRAL_CHECK_SEQ)
 
@@ -1699,26 +1702,24 @@ def capture_mixtral(device, model) -> dict:
         return True
 
     def at_decode(x, *_args):
-        return x.shape[0] in (decode_n, SERVE_SLOTS)
+        return x.shape[0] == SERVE_SLOTS
 
-    attn, ids, probs = capture_calls(
+    attn, probs = capture_calls(
         [(layers, "flash_attention", every),
-         (md_ops, "dispatch_positions", every),
          (moe, "moe_dispatch_plan", every)], prefill)
-    dec_ids, dec_probs = capture_calls(
-        [(md_ops, "dispatch_positions", at_decode),
-         (moe, "moe_dispatch_plan", at_decode)], decode_step)
-    out = dict(attn=attn, ids=ids, probs=probs, dec_ids=dec_ids,
-               dec_probs=dec_probs)
+    dec_probs, = capture_calls(
+        [(moe, "moe_dispatch_plan", at_decode)], decode_step)
+    out = dict(attn=attn, probs=probs, dec_probs=dec_probs)
     for name, calls in out.items():
         if len(calls) != cfg.num_layers:
             raise AssertionError(f"mixtral capture {name}: {len(calls)} "
                                  f"calls, not {cfg.num_layers}")
     print(f"mixtral-8x22b captures: a {MIXTRAL_CHECK_SEQ}-token prefill "
-          f"(B3 over {ids[0][0].shape[0]} sorted entries at capacity "
-          f"{ids[0][1]}, B4 q {tuple(attn[0][0].shape)}) and a decode step "
-          f"at {SERVE_SLOTS} slots (B3 over {dec_ids[0][0].shape[0]} entries "
-          f"at capacity {dec_ids[0][1]}), {cfg.num_layers} layers each")
+          f"(B3's plan over probabilities {tuple(probs[0][0].shape)}, top "
+          f"{probs[0][1]}, capacity {probs[0][2]}; B4 q "
+          f"{tuple(attn[0][0].shape)}) and a decode step at {SERVE_SLOTS} "
+          f"slots (probabilities {tuple(dec_probs[0][0].shape)}, capacity "
+          f"{dec_probs[0][2]}), {cfg.num_layers} layers each")
     return out
 
 
@@ -1741,12 +1742,81 @@ def random_expert_ids(n, num_experts, seed, device, runs=False):
                           torch.int32)
 
 
+def random_router_probs(n, num_experts, seed, device, ties=False):
+    """f32[n, num_experts]: a softmax of normal logits (twice the scale
+    of a unit normal, so some experts are favoured); with ``ties``, a
+    third of the rows all equal and the rest drawn from four levels, so
+    ties fall at the top, at the k-th place and below."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    if ties:
+        z = torch.randint(1, 5, (n, num_experts), generator=g,
+                          device=device).float()
+        z[::3] = 1.0
+        return z / z.sum(-1, keepdim=True)
+    z = torch.randn(n, num_experts, generator=g, device=device) * 2.0
+    return torch.softmax(z, -1)
+
+
+def sorted_expert_ids(probs, top_k):
+    """The sorted form's input for one plan: the (token, choice) entries'
+    experts by the plain route, stably sorted."""
+    import torch
+
+    from repro_torch.models import moe
+
+    _w, eidx = moe.route(probs, top_k)
+    return torch.sort(eidx.reshape(-1).to(torch.int32), stable=True).values
+
+
+def cuda_kernels_per_call(fn, calls: int = 100) -> tuple:
+    """(CUDA kernels, and memory copies and sets, per call of ``fn``;
+    the kernels' names) under torch.profiler, over ``calls`` calls after
+    a warm-up call. The profiler may miss a few of the first launches of
+    its window: the counts are means, not exact."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in kern if e.key.startswith(("Memcpy", "Memset"))]
+    kern = [e for e in kern if e not in copies]
+    return (sum(e.count for e in kern) / calls,
+            sum(e.count for e in copies) / calls,
+            sorted({e.key[:50] for e in kern}))
+
+
+def plan_bound(n, num_experts, top_k, capacity):
+    """The plan's least time (ms, and what bounds it): the probabilities
+    read once (4 B each), the table written once (8 B a slot) and the
+    load (4 B an expert); per probability a compare and an insert step,
+    per entry a rank and a slot (about 2 E + 4 k operations a token)."""
+    n_bytes = n * num_experts * 4 + num_experts * capacity * 8 + \
+        num_experts * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * (2 * num_experts + 4 * top_k) / FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", n_bytes)
+
+
 def check_moe_dispatch(device, caps) -> dict:
-    """Phase 2: moe_dispatch against its plain version, bit-equal, on the
-    sorted ids of every layer of a real full-width mixtral prefill and
-    decode step and on random ids; the kernel-backed plan equal to the
-    plain plan on the captured router probabilities; times of both, and
-    of both plans, at the prefill and the decode shape."""
+    """Phase 2: B3's fused plan bit-equal to the plain plan at every layer
+    of a real full-width mixtral prefill and decode step and on random
+    router probabilities (N = 1 .. 65,536, E 4, 8 and 128, top 1 and 2,
+    rows with ties, capacities that drop and that do not); the sorted
+    form bit-equal to its plain version on those layers' sorted expert
+    ids and on random ids; in turns, the fused launch against the chain
+    around the sorted form and the plain plan (graph replay and
+    host-issued), and the sorted form against its plain version; CUDA
+    kernels per plan on each route."""
     import torch
 
     from repro_torch.kernels.moe_dispatch import ops
@@ -1755,22 +1825,69 @@ def check_moe_dispatch(device, caps) -> dict:
 
     err = 0
 
-    def check(ids, capacity, num_experts):
+    def hold_plan(label, probs, top_k, capacity):
+        """The fused plan against the plain plan: the largest difference
+        (0: bit-equal)."""
+        got = ops.moe_dispatch_plan_cuda(probs, top_k=top_k,
+                                         capacity=capacity)
+        want = moe.plan_dispatch(probs, top_k, capacity)
+        torch.cuda.synchronize()
+        e = 0.0
+        for f in ("slot_token", "slot_weight", "load"):
+            if not torch.equal(got[f], want[f]):
+                e = max(e, float((got[f].double() - want[f].double()).abs()
+                                 .nan_to_num(float("inf")).max()) or 1.0)
+        if e:
+            print(f"BAD moe_dispatch_plan {label}: differs by {e}")
+        return e
+
+    def hold_sorted(ids, capacity, num_experts):
         got = ops.dispatch_positions_cuda(ids, capacity, num_experts)
         torch.cuda.synchronize()
         return max_abs_err(got, dispatch_slots_ref(ids, capacity,
                                                    num_experts))
 
     for name, key in (
-            (f"a full-width {MIXTRAL_CHECK_SEQ}-token prefill", "ids"),
-            (f"a full-width decode step at {SERVE_SLOTS} slots", "dec_ids")):
+            (f"a full-width {MIXTRAL_CHECK_SEQ}-token prefill", "probs"),
+            (f"a full-width decode step at {SERVE_SLOTS} slots",
+             "dec_probs")):
         calls = caps[key]
-        e = max(check(*c) for c in calls)
-        kept = [int(ops.dispatch_positions_cuda(*c)[1].sum()) for c in calls]
-        print(f"moe_dispatch: the {len(calls)} layers of {name} (N "
-              f"{calls[0][0].shape[0]}, capacity {calls[0][1]}): pos, keep "
-              f"and slot bit-equal (max_abs_err {e}); kept per layer {kept}")
+        e = max(hold_plan(f"{name}, layer {i}", *c)
+                for i, c in enumerate(calls))
+        kept = [int((ops.moe_dispatch_plan_cuda(
+            p, top_k=k, capacity=c)["slot_token"] >= 0).sum())
+            for p, k, c in calls]
+        print(f"moe_dispatch_plan: the {len(calls)} layers of {name} "
+              f"(probabilities {tuple(calls[0][0].shape)}, top {calls[0][1]}, "
+              f"capacity {calls[0][2]}): slot_token, slot_weight and load "
+              f"bit-equal to plan_dispatch's (max_abs_err {e}); kept per "
+              f"layer {kept}")
         err = max(err, e)
+        e = max(hold_sorted(sorted_expert_ids(p, k), c, p.shape[1])
+                for p, k, c in calls)
+        print(f"moe_dispatch sorted form: the {len(calls)} layers of {name} "
+              f"({calls[0][0].shape[0] * calls[0][1]} sorted entries): pos, "
+              f"keep and slot bit-equal (max_abs_err {e})")
+        err = max(err, e)
+    n_plans = 0
+    for n in (1, 7, 16, 1000, 1023, 1024, 1025, 3000, 6000, 65536):
+        for num_experts in (4, 8, 128):
+            for top_k in (1, 2):
+                for ties in (False, True):
+                    probs = random_router_probs(
+                        n, num_experts, n + 7 * num_experts + top_k, device,
+                        ties)
+                    # half the mean load (drops), or every entry (none)
+                    for capacity in (n * top_k // (2 * num_experts), n):
+                        err = max(err, hold_plan(
+                            f"random N={n} E={num_experts} top {top_k} "
+                            f"ties {ties} capacity {capacity}", probs, top_k,
+                            capacity))
+                        n_plans += 1
+    print(f"moe_dispatch_plan: {n_plans} random plans (N = 1 .. 65,536; E "
+          f"4, 8, 128; top 1, 2; rows with and without ties; capacities "
+          f"that drop and that do not): bit-equal to plan_dispatch's "
+          f"(max_abs_err {err})")
     for n in (1, 16, 1000, 1023, 1024, 1025, 3000, 6000, 65536, 1 << 20):
         for num_experts in (8, 4096):
             ids = random_expert_ids(n, num_experts, n + num_experts, device)
@@ -1779,73 +1896,70 @@ def check_moe_dispatch(device, caps) -> dict:
             # slots stay in int32 (no drops)
             for capacity in (m // (2 * num_experts),
                              min(m, (2**31 - 1) // num_experts)):
-                e = check(ids, capacity, num_experts)
-                print(f"moe_dispatch: random N={n} E={num_experts} capacity "
-                      f"{capacity}: bit-equal (max_abs_err {e})")
+                e = hold_sorted(ids, capacity, num_experts)
+                print(f"moe_dispatch sorted form: random N={n} "
+                      f"E={num_experts} capacity {capacity}: bit-equal "
+                      f"(max_abs_err {e})")
                 err = max(err, e)
         if n >= 1000:
-            e = check(random_expert_ids(n, 3, n, device, runs=True), 150, 3)
-            print(f"moe_dispatch: random unsorted runs N={n}: bit-equal "
-                  f"(max_abs_err {e})")
+            e = hold_sorted(random_expert_ids(n, 3, n, device, runs=True),
+                            150, 3)
+            print(f"moe_dispatch sorted form: random unsorted runs N={n}: "
+                  f"bit-equal (max_abs_err {e})")
             err = max(err, e)
-    for name, key in (("prefill", "probs"), ("decode step", "dec_probs")):
-        for probs, top_k, capacity in caps[key]:
-            got = ops.moe_dispatch_plan(probs, top_k=top_k, capacity=capacity)
-            want = moe.plan_dispatch(probs, top_k, capacity)
-            for f in ("slot_token", "slot_weight", "load"):
-                e = float((got[f] - want[f]).abs().max())
-                if e:
-                    raise AssertionError(f"moe_dispatch_plan {f} differs "
-                                         f"from plan_dispatch by {e} at the "
-                                         f"{name}")
-        print(f"moe_dispatch_plan: the {len(caps[key])} layers of the real "
-              f"{name}: slot_token, slot_weight and load equal to "
-              f"plan_dispatch's")
     if err:
         raise AssertionError(f"moe_dispatch disagrees with its plain version "
                              f"(max_abs_err {err})")
 
-    def bound(n):
-        # the function B3 replaces: each id read once (4 B), pos and keep
-        # written once (4, 1 B); the kernel's slot is its own extra; per
-        # entry about 6 integer operations (flag, ballot, scan step,
-        # subtract, compare, slot multiply-add)
-        bytes_ms = n * 9 / HBM_BYTES_PER_S * 1e3
-        ops_ms = n * 6 / FP32_OPS_PER_S * 1e3
-        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                       else "operations")
-
     rows = {}
-    for name, ids_key, probs_key in (
-            (f"layer 0 of the {MIXTRAL_CHECK_SEQ}-token prefill", "ids",
-             "probs"),
-            (f"layer 0 of the decode step at {SERVE_SLOTS} slots", "dec_ids",
+    for name, key in (
+            (f"layer 0 of the {MIXTRAL_CHECK_SEQ}-token prefill", "probs"),
+            (f"layer 0 of the decode step at {SERVE_SLOTS} slots",
              "dec_probs")):
-        args = caps[ids_key][0]
-        probs, top_k, capacity = caps[probs_key][0]
-        ms = graph_ms(lambda: ops.dispatch_positions_cuda(*args))
-        plain_ms = graph_ms(lambda: dispatch_slots_ref(*args))
-        plan_ms = graph_ms(lambda: ops.moe_dispatch_plan(
-            probs, top_k=top_k, capacity=capacity))
-        plain_plan_ms = graph_ms(lambda: moe.plan_dispatch(probs, top_k,
-                                                           capacity))
-        bound_ms, bound_by = bound(args[0].shape[0])
-        print(f"moe_dispatch device time, {name} (N {args[0].shape[0]}, "
-              f"capacity {args[1]}): kernel {ms:.6f} ms, plain {plain_ms:.6f} "
-              f"ms, bound {bound_ms:.9f} ms ({bound_by}), kernel at "
-              f"{bound_ms / ms:.6f} of its bound; whole plan "
-              f"(top-k, sort, B3, scatters, load): moe_dispatch_plan "
-              f"{plan_ms:.6f} ms, plan_dispatch {plain_plan_ms:.6f} ms")
-        eager = [eager_ms(fn) for fn in (
-            lambda: ops.dispatch_positions_cuda(*args),
-            lambda: ops.moe_dispatch_plan(probs, top_k=top_k,
-                                          capacity=capacity),
-            lambda: moe.plan_dispatch(probs, top_k, capacity))]
-        print(f"moe_dispatch eager (host-issued), {name}: kernel wrapper "
-              f"{eager[0]:.6f} ms; moe_dispatch_plan {eager[1]:.6f} ms, "
-              f"plan_dispatch {eager[2]:.6f} ms")
-        rows[ids_key] = (ms, plain_ms, bound_ms, bound_by)
-    ms, plain_ms, bound_ms, bound_by = rows["ids"]
+        probs, top_k, capacity = caps[key][0]
+        E = probs.shape[1]
+        ids = sorted_expert_ids(probs, top_k)
+        fns = {
+            "fused launch": lambda: ops.moe_dispatch_plan_cuda(
+                probs, top_k=top_k, capacity=capacity),
+            "chain (sorted form)": lambda: ops.moe_dispatch_chain(
+                probs, top_k=top_k, capacity=capacity),
+            "plain plan": lambda: moe.plan_dispatch(probs, top_k, capacity),
+        }
+        dev_res = in_turns(fns, graph_ms)
+        print_turns(f"moe_dispatch plan, device time (graph replay), {name}",
+                    dev_res)
+        host_res = in_turns(fns, eager_ms)
+        print_turns(f"moe_dispatch plan, host-issued (eager), {name}",
+                    host_res)
+        per_plan = {label: cuda_kernels_per_call(fn)
+                    for label, fn in fns.items()}
+        print(f"moe_dispatch plan, CUDA kernels per plan (and memory copies "
+              f"and sets), {name}: " + "; ".join(
+                  f"{label} {n:.2f} ({c:.2f}; {', '.join(names)})"
+                  for label, (n, c, names) in per_plan.items()))
+        n, c, names = per_plan["fused launch"]
+        if round(n) != 1 or c or len(names) != 1:
+            raise AssertionError(f"the fused plan ran "
+                                 f"{per_plan['fused launch']}")
+        sorted_res = in_turns({
+            "sorted form": lambda: ops.dispatch_positions_cuda(ids, capacity,
+                                                               E),
+            "its plain version": lambda: dispatch_slots_ref(ids, capacity, E),
+        }, graph_ms)
+        print_turns(f"moe_dispatch sorted form ({ids.shape[0]} entries), "
+                    f"{name}", sorted_res)
+        bound_ms, bound_by, n_bytes = plan_bound(probs.shape[0], E, top_k,
+                                               capacity)
+        ms = dev_res["fused launch"][1]
+        print(f"moe_dispatch fused plan, {name} (N {probs.shape[0]}, E {E}, "
+              f"top {top_k}, capacity {capacity}): {ms:.6f} ms, bound "
+              f"{bound_ms:.9f} ms ({bound_by}, {n_bytes} B), at "
+              f"{bound_ms / ms:.6f} of its bound; chain "
+              f"{dev_res['chain (sorted form)'][1]:.6f} ms, plain plan "
+              f"{dev_res['plain plan'][1]:.6f} ms")
+        rows[key] = (ms, dev_res["plain plan"][1], bound_ms, bound_by)
+    ms, plain_ms, bound_ms, bound_by = rows["probs"]
     return dict(
         name="moe_dispatch",
         route="cuda",
@@ -2122,7 +2236,7 @@ def mixtral_first_token_logits(model, device, outputs, tol=FIRST_LOGIT_TOL,
         def wrap(orig):
             def recorded(probs, *, top_k, capacity):
                 plan = orig(probs, top_k=top_k, capacity=capacity)
-                choice = torch.topk(probs, top_k).indices.sort(-1).values
+                choice = moe.route(probs, top_k)[1].sort(-1).values
                 rec.append((plan, choice, capacity))
                 return plan
             return recorded
@@ -2259,28 +2373,31 @@ def mixtral_first_token_logits(model, device, outputs, tol=FIRST_LOGIT_TOL,
         report(acc)
 
 
-def profile_serving(model, device, wall_s, kernels) -> None:
-    """The kernel path's serving run again under torch.profiler (CUDA
-    activity only: about 210,000 kernels for gemma3-1b): CUDA kernels,
-    device seconds, each of ``kernels``' share of them, and the device
-    busy share against the unprofiled run's wall time."""
+def profile_serving(model, device, wall_s, kernels, kernel_impl="auto",
+                    n_requests=SERVE_REQUESTS) -> None:
+    """One path's serving run again under torch.profiler (CUDA activity
+    only: about 210,000 kernels for gemma3-1b): CUDA kernels, device
+    seconds, each of ``kernels``' share of them, and the device busy
+    share against the unprofiled run's wall time."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _eng, _done, prof_wall = serve_run(model, device, "auto")
+        _eng, _done, prof_wall = serve_run(model, device, kernel_impl,
+                                           n_requests)
     t0 = time.time()
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     name = model[0].name
-    print(f"profile {name} serving: the trace read in "
+    path = "kernel path" if kernel_impl == "auto" else "plain path"
+    print(f"profile {name} serving, {path}: the trace read in "
           f"{time.time() - t0:.3f} s")
     n_kernels = sum(e.count for e in kern)
     dev_s = sum(e.self_device_time_total for e in kern) / 1e6
     # B4's bf16 kernel is flash_attention_tc_kernel, B5's
-    # rwkv6_scan_tile_kernel
-    mine = {k: [e for e in kern if re.search(rf"{k}(_tc|_tile)?_kernel",
+    # rwkv6_scan_tile_kernel, B3's moe_dispatch_plan_kernel
+    mine = {k: [e for e in kern if re.search(rf"{k}(_tc|_tile|_plan)?_kernel",
                                              e.key)] for k in kernels}
     k_s = {k: sum(e.self_device_time_total for e in es) / 1e6
            for k, es in mine.items()}
@@ -2288,7 +2405,7 @@ def profile_serving(model, device, wall_s, kernels) -> None:
         raise AssertionError(f"the profiler saw no CUDA kernel or not each "
                              f"of {kernels}: {k_s}")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profile {name} serving, kernel path: {n_kernels} CUDA "
+    print(f"profile {name} serving, {path}: {n_kernels} CUDA "
           f"kernels, device {dev_s:.4f} s against {wall_s:.4f} s wall "
           f"unprofiled ({prof_wall:.4f} s under the profiler): device busy "
           f"share {dev_s / wall_s:.4f}; "
@@ -2301,14 +2418,18 @@ def profile_serving(model, device, wall_s, kernels) -> None:
 
 
 def serve_both_paths(model, device, want, n_plain, logit_tol,
-                     logits_check=first_token_logits) -> dict:
+                     logits_check=first_token_logits,
+                     profile_plain=False, turns=False) -> dict:
     """One model's serving cell through ServingEngine at full width: all
     requests on the kernel path, the first ``n_plain`` on the plain path.
     ``want`` maps each kernel of the kernel path to its launches as a
     function of the engine's stats; every other serving kernel, and on
-    the plain path every kernel, launches none. First-token logits held
-    to ``logit_tol`` by ``logits_check``; a profile of the kernel path.
-    Returns the kernel path's launches by kernel."""
+    the plain path every kernel, launches none. With ``turns``, both
+    paths serve again in reverse order (kernel, plain, plain, kernel)
+    and their prefill and decode times are printed in turns. First-token
+    logits held to ``logit_tol`` by ``logits_check``; a profile of the
+    kernel path, and with ``profile_plain`` of the plain path. Returns
+    the kernel path's launches by kernel."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.moe_dispatch import ops as md_ops
     from repro_torch.kernels.rwkv6_scan import ops as rw_ops
@@ -2316,7 +2437,7 @@ def serve_both_paths(model, device, want, n_plain, logit_tol,
     cfg, _params = model
     counts = {"flash_attention": fa_ops, "rwkv6_scan": rw_ops,
               "moe_dispatch": md_ops}
-    outputs, walls, launches = {}, {}, {}
+    outputs, walls, launches, timed = {}, {}, {}, {}
     for impl, n_req in (("auto", SERVE_REQUESTS), ("jnp", n_plain)):
         reset_launches()
         eng, done, wall = serve_run(model, device, impl, n_req)
@@ -2347,6 +2468,22 @@ def serve_both_paths(model, device, want, n_plain, logit_tol,
                 raise AssertionError(f"request {r.rid}: output {r.output}")
         outputs[impl] = {r.rid: r.output for r in done}
         walls[impl] = wall
+        timed[impl] = [st]
+    if turns:
+        for impl, n_req in (("jnp", n_plain), ("auto", SERVE_REQUESTS)):
+            timed[impl].append(serve_run(model, device, impl, n_req)[0].stats)
+        print(f"{cfg.name} serving in turns (kernel, plain, plain, kernel "
+              f"path; each reading and the mean): " + "; ".join(
+                  f"{path} prefill " + " / ".join(
+                      f"{st['prefill_s'] / st['prefills'] * 1e3:.3f}"
+                      for st in timed[impl])
+                  + f" = {mean_ms(timed[impl], 'prefill'):.3f} ms per "
+                  f"request, decode " + " / ".join(
+                      f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f}"
+                      for st in timed[impl])
+                  + f" = {mean_ms(timed[impl], 'decode'):.3f} ms per step"
+                  for impl, path in (("auto", "kernel path"),
+                                     ("jnp", "plain path"))))
     k, j = outputs["auto"], outputs["jnp"]
     same = sum(a == b for rid in j for a, b in zip(k[rid], j[rid]))
     print(f"{cfg.name} serving, kernel vs plain path tokens over the "
@@ -2356,7 +2493,16 @@ def serve_both_paths(model, device, want, n_plain, logit_tol,
           f"tokens; {sum(k[rid] == j[rid] for rid in j)} whole outputs")
     logits_check(model, device, outputs, logit_tol, n_plain)
     profile_serving(model, device, walls["auto"], tuple(want))
+    if profile_plain:
+        profile_serving(model, device, walls["jnp"], (), "jnp", n_plain)
     return launches["auto"]
+
+
+def mean_ms(stats, what) -> float:
+    """Mean ms per prefill (``what`` "prefill") or per decode step
+    ("decode") over engine stats."""
+    key = "prefills" if what == "prefill" else "decode_steps"
+    return sum(st[f"{what}_s"] / st[key] for st in stats) / len(stats) * 1e3
 
 
 def main_path_slice3(device, model) -> int:
@@ -2444,7 +2590,8 @@ def main_path_slice5(device, model) -> dict:
         model, device,
         {"moe_dispatch": lambda st: n * (st["prefills"] + st["decode_steps"]),
          "flash_attention": lambda st: n * st["prefills"]},
-        SERVE_REQUESTS, FIRST_LOGIT_TOL, mixtral_first_token_logits)
+        SERVE_REQUESTS, FIRST_LOGIT_TOL, mixtral_first_token_logits,
+        profile_plain=True, turns=True)
 
 
 def profile_steps(name, paths: dict, workload, device, warm: int = 100,

@@ -14,9 +14,10 @@ Each kernel directory has:
                   on the tensor cores, f32 on the CUDA cores)
   rwkv6_scan    — the RWKV6 WKV recurrence over time (rwkv6's time mix,
                   in prefill and in every decode step)
-  moe_dispatch  — each routed entry's position within its expert and the
-                  capacity keep-mask (the planned MoE dispatch of
-                  mixtral's layers, in prefill and in every decode step)
+  moe_dispatch  — the planned MoE dispatch's whole plan: top-k, each
+                  routed entry's position within its expert, the
+                  dispatch table and the load (mixtral's layers, in
+                  prefill and in every decode step)
 
 A wrapper launches its kernel for a CUDA tensor and raises if it cannot;
 it runs the plain version only for a tensor that lies on the CPU. It

@@ -1,2 +1,2 @@
-"""moe_dispatch: capacity positions of the planned MoE dispatch (kernel B3,
+"""moe_dispatch: the planned MoE dispatch's plan in one launch (kernel B3,
 mixtral's MoE layers in prefill and in every decode step)."""

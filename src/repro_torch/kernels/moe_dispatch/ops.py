@@ -1,17 +1,23 @@
-"""Wrapper of the moe_dispatch kernel (B3).
+"""Wrappers of the moe_dispatch kernels (B3).
+
+``moe_dispatch_plan(router_probs, top_k=, capacity=)`` is the main
+path's form: the whole dispatch plan (top-k routing, each entry's
+position within its expert, the [experts * capacity] dispatch table and
+the load) from the router probabilities. For CUDA tensors it is one
+launch of the fused kernel (``csrc/moe_dispatch.cu``,
+``moe_dispatch_plan_kernel``); for CPU tensors its plain version
+(``ref.moe_dispatch_plan_ref``, which is
+``repro_torch.models.moe.plan_dispatch``). It takes up to
+``MAX_EXPERTS`` experts and ``MAX_TOP_K`` choices and raises above them:
+there is no other route on the card.
 
 ``dispatch_positions(experts_sorted, capacity, num_experts)`` is the
-kernel's contract, (pos, keep), plus each entry's dispatch slot. For
-CUDA tensors it launches the CUDA kernel (``csrc/moe_dispatch.cu``), for
-CPU tensors it runs the plain version (``ref.py``).
-
-``moe_dispatch_plan`` is the dispatch plan: top-k routing, a stable sort
-into the canonical (expert, arrival) order, the slots from B3, then the
-scatters into the [experts * capacity] dispatch table. With ``plain`` the
-slots come from B3's plain version on any device: that is
-``repro_torch.models.moe.plan_dispatch``. JAX's out-of-range scatters
-(``mode="drop"``) become writes into one extra drop row that is sliced
-off: torch raises on such an index, and CUDA device-asserts.
+TPU kernel's own contract, the sorted form, (pos, keep) plus each
+entry's dispatch slot (``moe_dispatch_kernel``; for CPU tensors
+``ref.dispatch_slots_ref``). ``moe_dispatch_chain`` is the plan the
+sorted form used to sit in: route, sort, the sorted form, scatters and
+histogram, one eager kernel each. Neither is on the main path;
+chip_smoke.py holds and times them.
 """
 
 from __future__ import annotations
@@ -22,11 +28,19 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build, device_guard
-from repro_torch.kernels.moe_dispatch.ref import dispatch_slots_ref
+from repro_torch.kernels.moe_dispatch.ref import (
+    dispatch_slots_ref,
+    moe_dispatch_plan_ref,
+    sorted_plan,
+)
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "moe_dispatch.cu"]
 
-# Kernel launches since the last reset (``launches = 0``).
+# the fused plan's limits (kMaxExperts, kMaxTopK in the source)
+MAX_EXPERTS = 256
+MAX_TOP_K = 8
+
+# Kernel launches since the last reset (``launches = 0``): both forms.
 launches = 0
 
 _LIB: ctypes.CDLL | None = None
@@ -40,6 +54,10 @@ def _library() -> ctypes.CDLL:
         lib = _build.load("moe_dispatch", SOURCES)
         fn = lib.moe_dispatch_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.moe_dispatch_plan_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -60,7 +78,7 @@ def _check(experts_sorted, capacity, num_experts):
 
 
 def dispatch_positions_cuda(experts_sorted, capacity, num_experts):
-    """Launch the kernel (a CUDA tensor). Same outputs as
+    """Launch the sorted form (a CUDA tensor). Same outputs as
     :func:`dispatch_positions`."""
     global launches
     e = experts_sorted
@@ -90,7 +108,7 @@ def dispatch_positions(experts_sorted, capacity, num_experts):
     """(pos int32[N], keep bool[N], slot int32[N]) over expert ids sorted
     by (expert, arrival), -1 = padding: a kept entry's slot is ``e *
     capacity + pos``, the others' ``num_experts * capacity`` (the drop
-    row). The kernel for a CUDA tensor, the plain version for a CPU
+    row). The sorted form for a CUDA tensor, the plain version for a CPU
     tensor."""
     if experts_sorted.device.type != "cpu":
         return dispatch_positions_cuda(experts_sorted, capacity, num_experts)
@@ -98,44 +116,75 @@ def dispatch_positions(experts_sorted, capacity, num_experts):
     return dispatch_slots_ref(experts_sorted, capacity, num_experts)
 
 
-def route(router_probs, top_k):
-    """Each token's top-k experts [N, k] and their weights, renormalised
-    to sum to 1 (at least 1e-9 before the division)."""
-    w, eidx = torch.topk(router_probs, top_k)
-    return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), eidx
+def _check_plan(router_probs, top_k, capacity):
+    p = router_probs
+    if p.dtype != torch.float32:
+        raise TypeError(f"moe_dispatch_plan: probabilities are {p.dtype}, "
+                        f"want float32")
+    if p.dim() != 2:
+        raise ValueError(f"moe_dispatch_plan: probabilities have shape "
+                         f"{tuple(p.shape)}, want [tokens, experts]")
+    if not p.is_contiguous():
+        raise ValueError("moe_dispatch_plan: probabilities are not "
+                         "contiguous")
+    n, E = p.shape
+    if E > MAX_EXPERTS:
+        raise ValueError(f"moe_dispatch_plan: {E} experts, the kernel takes "
+                         f"at most {MAX_EXPERTS}")
+    if not 1 <= top_k <= min(E, MAX_TOP_K):
+        raise ValueError(f"moe_dispatch_plan: top_k {top_k} of {E} experts "
+                         f"(1 .. {MAX_TOP_K})")
+    if capacity < 0 or n * top_k > _I32_MAX or E * capacity > _I32_MAX:
+        raise ValueError(f"moe_dispatch_plan: {n} tokens x top_k {top_k}, "
+                         f"{E} experts x capacity {capacity}: out of int32 "
+                         f"range")
 
 
-def routed_share(eidx, num_experts):
-    """f32[E]: the share of the N*k routed entries that go to each expert
-    (a histogram by ``index_add_``: ``bincount`` would sync the host)."""
-    ee = eidx.reshape(-1)
-    load = torch.zeros(num_experts, dtype=torch.float32, device=ee.device)
-    load.index_add_(0, ee, torch.ones(ee.shape[0], dtype=torch.float32,
-                                      device=ee.device))
-    return load / ee.shape[0]
+def moe_dispatch_plan_cuda(router_probs, *, top_k, capacity):
+    """Launch the fused plan (a CUDA tensor): one kernel, no other.
+    Same outputs as :func:`moe_dispatch_plan`."""
+    global launches
+    p = router_probs
+    _check_plan(p, top_k, capacity)
+    if p.device.type != "cuda":
+        raise ValueError(f"moe_dispatch_plan: probabilities on {p.device}, "
+                         f"want CUDA")
+    n, E = p.shape
+    slot_token = torch.empty(E * capacity, dtype=torch.int32, device=p.device)
+    slot_weight = torch.empty(E * capacity, dtype=torch.float32,
+                              device=p.device)
+    load = torch.empty(E, dtype=torch.float32, device=p.device)
+    vec4 = E % 4 == 0 and p.data_ptr() % 16 == 0
+    with device_guard(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = _library().moe_dispatch_plan_launch(
+            p.data_ptr(), slot_token.data_ptr(), slot_weight.data_ptr(),
+            load.data_ptr(), n, E, top_k, capacity, int(vec4), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"moe_dispatch_plan kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return {"slot_token": slot_token, "slot_weight": slot_weight,
+            "load": load}
 
 
-def moe_dispatch_plan(router_probs, *, top_k, capacity, plain=False):
-    """The canonical-order dispatch plan. router_probs f32[N, E] ->
-    {"slot_token": int32[E*C], the token feeding each expert slot (-1
-    empty); "slot_weight": f32[E*C], its combine weight; "load": f32[E],
-    the share of routed entries per expert}. The slots come from
-    ``dispatch_positions`` (B3 on the card), or with ``plain`` from its
-    plain version."""
-    E = router_probs.shape[1]
-    dev = router_probs.device
-    w, eidx = route(router_probs, top_k)
-    ee = eidx.reshape(-1).to(torch.int32)
-    ee_s, order = torch.sort(ee, stable=True)
-    slots = dispatch_slots_ref if plain else dispatch_positions
-    _pos, _keep, slot = slots(ee_s, capacity, E)
-    slot = slot.long()
-    n_slots = E * capacity
-    slot_token = torch.full((n_slots + 1,), -1, dtype=torch.int32,
-                            device=dev)
-    slot_token.scatter_(0, slot, (order // top_k).to(torch.int32))
-    slot_weight = torch.zeros(n_slots + 1, dtype=torch.float32, device=dev)
-    slot_weight.scatter_(0, slot, w.reshape(-1)[order])
-    return {"slot_token": slot_token[:n_slots],
-            "slot_weight": slot_weight[:n_slots],
-            "load": routed_share(ee, E)}
+def moe_dispatch_plan(router_probs, *, top_k, capacity):
+    """The canonical-order dispatch plan. router_probs f32[N, E],
+    contiguous -> {"slot_token": int32[E*C], the token feeding each
+    expert slot (-1 empty); "slot_weight": f32[E*C], its combine weight
+    (0 empty); "load": f32[E], the share of routed entries per expert}.
+    The fused kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    if router_probs.device.type != "cpu":
+        return moe_dispatch_plan_cuda(router_probs, top_k=top_k,
+                                      capacity=capacity)
+    _check_plan(router_probs, top_k, capacity)
+    return moe_dispatch_plan_ref(router_probs, top_k, capacity)
+
+
+def moe_dispatch_chain(router_probs, *, top_k, capacity):
+    """The plan as eager kernels around the sorted form (on a CUDA
+    tensor): route, sort, ``dispatch_positions``, scatters, histogram.
+    Held and timed against the fused launch; not on the main path."""
+    return sorted_plan(router_probs, top_k, capacity, dispatch_positions)

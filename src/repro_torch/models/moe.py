@@ -4,15 +4,16 @@
 The dispatch plan is computed ahead of any expert compute, in canonical
 (expert id, arrival) order, with a static per-expert capacity: each
 expert runs one [capacity, d] block, tokens past its capacity are
-dropped, and the combine is one scatter-add. The plan's segmented
-position scan is kernel B3 (``kernels.moe_dispatch``, hand-written
-CUDA) where ``use_kernel(kernel_impl, device)`` says so, and otherwise
-``plan_dispatch``, the same plan with B3's plain version. The router,
+dropped, and the combine is one scatter-add. The whole plan (top-k,
+positions, dispatch table, load) is one launch of kernel B3
+(``kernels.moe_dispatch``, hand-written CUDA) where
+``use_kernel(kernel_impl, device)`` says so, and otherwise
+``plan_dispatch``, B3's plain version. The router,
 the expert products, the gather and the combine are plain PyTorch, as
 the JAX package left them to XLA.
 
 Modes:
-  'planned' — sort-based capacity dispatch (the default).
+  'planned' — capacity dispatch in canonical order (the default).
   'dense'   — every expert computes every token, mask-combined (exact, no
               drops); the tests' oracle.
 
@@ -30,9 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import use_kernel
-from repro_torch.kernels.moe_dispatch import ops as dispatch_ops
-from repro_torch.kernels.moe_dispatch.ops import (
-    moe_dispatch_plan,
+from repro_torch.kernels.moe_dispatch.ops import moe_dispatch_plan
+from repro_torch.kernels.moe_dispatch.ref import (
+    moe_dispatch_plan_ref,
     route,
     routed_share,
 )
@@ -83,10 +84,10 @@ def _expert_ffn(blocks, p, mlp_kind):
 
 
 def plan_dispatch(router_probs, top_k, capacity):
-    """The plain dispatch plan: ``moe_dispatch_plan`` with B3's plain
-    version in its place, on any device."""
-    return dispatch_ops.moe_dispatch_plan(router_probs, top_k=top_k,
-                                          capacity=capacity, plain=True)
+    """The plain dispatch plan, on any device: B3's plain version (route,
+    stable sort, positions, scatters, histogram; the port of
+    ``repro.models.moe.plan_dispatch``)."""
+    return moe_dispatch_plan_ref(router_probs, top_k, capacity)
 
 
 def capacity_for(n_tokens, top_k, num_experts, capacity_factor):

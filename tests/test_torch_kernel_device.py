@@ -128,6 +128,12 @@ def _launch_moe_dispatch(dev):
         torch.zeros(8, dtype=torch.int32, device=dev), 4, 2)
 
 
+def _launch_moe_dispatch_plan(dev):
+    md_ops.moe_dispatch_plan_cuda(
+        torch.zeros(8, 4, dtype=torch.float32, device=dev), top_k=2,
+        capacity=4)
+
+
 def _launch_rwkv6_scan(dev):
     f32 = dict(dtype=torch.float32, device=dev)
     r, k, v, w = (torch.zeros(1, 2, 3, 16, **f32) for _ in range(4))
@@ -153,6 +159,8 @@ WRAPPERS = {
     "dep_wavefront_rows": (dw_ops, _launch_dep_wavefront_rows,
                            "dep_wavefront_rows_launch"),
     "moe_dispatch": (md_ops, _launch_moe_dispatch, "moe_dispatch_launch"),
+    "moe_dispatch_plan": (md_ops, _launch_moe_dispatch_plan,
+                          "moe_dispatch_plan_launch"),
     "rwkv6_scan": (rw_ops, _launch_rwkv6_scan, "rwkv6_scan_launch"),
     "flash_attention_bf16": (fa_ops, _launch_flash_attention(torch.bfloat16),
                              "flash_attention_tc_launch"),
@@ -195,7 +203,10 @@ def _card_cases(dev):
         lock_grant_ref,
         lock_grant_step_ref,
     )
-    from repro_torch.kernels.moe_dispatch.ref import dispatch_slots_ref
+    from repro_torch.kernels.moe_dispatch.ref import (
+        dispatch_slots_ref,
+        moe_dispatch_plan_ref,
+    )
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
     g = torch.Generator().manual_seed(0)
@@ -207,6 +218,7 @@ def _card_cases(dev):
     ok = (torch.rand(300, generator=g) < 0.5).to(dev)
     experts = torch.sort(torch.randint(-1, 8, (300,), generator=g))[0].to(
         torch.int32).to(dev)
+    probs = torch.softmax(torch.randn(300, 8, generator=g), -1).to(dev)
     rwkv = [(torch.randn(1, 2, 9, 16, generator=g) * 0.2).to(dev)
             for _ in range(3)]
     w = torch.rand(1, 2, 9, 16, generator=g).to(dev) * 0.5 + 0.4
@@ -237,6 +249,9 @@ def _card_cases(dev):
          lambda: dep_wavefront_rows_ref(units, preds, ok[:21])),
         ("moe_dispatch", lambda: md_ops.dispatch_positions_cuda(experts, 16, 8),
          lambda: dispatch_slots_ref(experts, 16, 8)),
+        ("moe_dispatch_plan", lambda: tuple(md_ops.moe_dispatch_plan_cuda(
+            probs, top_k=2, capacity=64).values()),
+         lambda: tuple(moe_dispatch_plan_ref(probs, 2, 64).values())),
         ("rwkv6_scan", lambda: rw_ops.rwkv6_scan_cuda(*rwkv, w, u, s0),
          lambda: rwkv6_scan_ref(*rwkv, w, u, s0)),
         ("flash_attention", lambda: fa_ops.flash_attention_cuda(

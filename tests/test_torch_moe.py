@@ -1,14 +1,16 @@
 """The port's MoE path and mixtral-8x22b against the JAX package, in
 float32, on the same weights (``params_from_numpy``) and inputs: the
-config, ``apply_moe`` in every mode and FFN kind, a whole prefill and
-three decode steps at the SMOKE config, decode against the full forward,
-the serving engine token for token, the launcher, and the launcher's
-check that a config's weights fit the card.
+config, ``apply_moe`` in every mode and FFN kind and on routers whose
+probabilities tie (experts picked as ``jax.lax.top_k`` picks them), a
+whole prefill and three decode steps at the SMOKE config, decode
+against the full forward, the serving engine token for token, the
+launcher, and the launcher's check that a config's weights fit the
+card.
 
 Tolerances (float32, absolute): 2e-5 for ``apply_moe`` and for a whole
 prefill's or decode step's logits and cache, as for gemma3-1b in
 tests/test_torch_models.py (the port sums in another order than XLA; the
-routing is the same, since no two router probabilities tie); the aux loss
+routing is the same: ties break as jax.lax.top_k breaks them); the aux loss
 to 1e-6. The decode-matches-forward mirror keeps
 tests/test_models_smoke.py's 0.08 in bfloat16 and uses 1e-5 in float32.
 The serving engine's tokens are equal.
@@ -177,6 +179,41 @@ def test_apply_moe_matches_jax(mode, cf, kind, shared, kernel_impl):
         plan = MOE.plan_dispatch(probs, 2, MOE.capacity_for(512, 2, 4, cf))
         kept = int((plan["slot_token"] >= 0).sum())
         assert (kept < 1024) == (cf == 1.0)  # drops where they should
+
+
+def _tied_router(kind, d, E, seed):
+    """A router under which tokens' probabilities tie exactly (the inputs
+    are in {-1, 0, 1} and the router in {0, 1}, so the logits are exact
+    integers): all E equal (``zero``); experts (0, 1) and (2, 3) equal
+    (``pairs``); experts 1-3 equal, so a tie at the second place or
+    among the top two (``kth``)."""
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        return np.zeros((d, E), np.float32)
+    cols = rng.integers(0, 2, (d, 2)).astype(np.float32)
+    if kind == "pairs":
+        return np.repeat(cols, E // 2, 1)
+    return np.concatenate([cols[:, :1], np.repeat(cols[:, 1:], E - 1, 1)], 1)
+
+
+@pytest.mark.parametrize("kernel_impl", IMPLS)
+@pytest.mark.parametrize("mode,cf", [("dense", 1.25), ("planned", 1.0),
+                                     ("planned", 8.0)])
+@pytest.mark.parametrize("kind", ["zero", "pairs", "kth"])
+def test_apply_moe_breaks_router_ties_as_jax(kind, mode, cf, kernel_impl):
+    """Tied router probabilities pick JAX's experts (lower index first)."""
+    p = _moe_params(32, 64, 4, "swiglu", False, seed=50)
+    p["router"] = _tied_router(kind, 32, 4, seed=51)
+    x = np.random.default_rng(52).integers(-1, 2, (2, 64, 32)).astype(
+        np.float32)
+    kw = dict(top_k=2, capacity_factor=cf, mlp_kind="swiglu", mode=mode)
+    out, aux = MOE.apply_moe(torch.from_numpy(x),
+                             jax.tree.map(torch.from_numpy, p),
+                             kernel_impl=kernel_impl, **kw)
+    jout, jaux = jax.jit(lambda x, p: JMOE.apply_moe(x, p, **kw))(
+        jnp.asarray(x), p)
+    _close(out, jout, 2e-5)
+    _close(aux, jaux, 1e-6)
 
 
 def test_planned_with_ample_capacity_equals_dense():
