@@ -31,10 +31,11 @@ Phases (each raises on failure; the script then exits non-zero):
                turns: each new form against its earlier design, each
                fused launch against the eager chain it replaces (graph
                replay and host-issued), an empty launch (the floor);
-  3. goldens — replay the nine ported cells of tests/golden/ on the card,
+  3. goldens — replay the 13 ported cells of tests/golden/ on the card,
                bit-exactly;
   4. main path, slice 1 — YCSB at the paper's width (10 M records, 64
-               hot, 8,192 txns) through ``run_simulation``: orthrus (16 CC
+               hot, 8,192 txns; SIM_CUT's depth) through
+               ``run_simulation``: orthrus (16 CC
                + 64 exec lanes, window 4) through lock_grant, the same
                cell on the plain path (identical fingerprint required),
                and deadlock_free on 80 exec lanes; step profiles, the
@@ -84,7 +85,21 @@ Phases (each raises on failure; the script then exits non-zero):
                the share of (token, layer) top-2 choices on which the two
                paths agree and the share of routed entries each layer
                drops at capacity; the same readings and profile as
-               slice 3, and a profile of the plain path.
+               slice 3, and a profile of the plain path;
+  9. main path, slice 7 — the paper's dynamic-2PL baselines at Fig 4's
+               widest cells (twopl_waitdie, twopl_waitfor and
+               twopl_dreadlocks on 80 exec lanes, YCSB at the paper's
+               width) and the partitioned store at Fig 6's dual-partition
+               cell (64 lanes, 64 partitions, no hot set), at SIM_CUT's
+               depth, each through ``run_simulation`` with each run's
+               fingerprint; every 2PL cell aborts on deadlock, the
+               partitioned store never; twopl_waitfor's fingerprint
+               (metrics included) is the same on release_path="dense"
+               (the in-tree oracle, full width) and with event leaping
+               off; no kernel runs on this path (the reference's grant
+               and deadlock stages are plain jnp); step profiles of
+               twopl_waitdie, twopl_dreadlocks and deadlock_free in
+               turns, whose difference is the deadlock stage's cost.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -131,6 +146,7 @@ one CUDA card and imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -141,7 +157,8 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 GOLDEN_CELLS = ("orthrus", "deadlock_free", "deadlock_free_tpcc_ollp",
                 "dgcc", "quecc", "scheduled", "dgcc_frag", "quecc_frag",
-                "quecc_frag_pipe")
+                "quecc_frag_pipe", "twopl_waitdie", "twopl_waitfor",
+                "twopl_dreadlocks", "partitioned_store")
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -152,6 +169,11 @@ YCSB_FULL = dict(kind="ycsb", num_txns=8192, num_records=10_000_000,
                  num_hot=64, seed=0)
 SIM_FULL = dict(max_rounds=6000, warmup_rounds=2000, chunk_rounds=2000,
                 target_commits=10**9)
+# A depth cut for the script's time limit: the lock-table cells step
+# (nearly) every round at 80 lanes, 5-12 ms a step, so they run 3,000
+# rounds; widths stay
+SIM_CUT = dict(max_rounds=3000, warmup_rounds=1000, chunk_rounds=1000,
+               target_commits=10**9)
 ORTHRUS_FULL = dict(protocol="orthrus", n_cc=16, n_exec=64, window=4)
 DF_FULL = dict(protocol="deadlock_free", n_exec=80)
 # The batch-planned cells (benchmarks/figures.py): fig13's 80-core split
@@ -217,6 +239,16 @@ MIXTRAL_SECOND_SEED = SEED + 1
 # random weights most tokens lean to the same experts, and near-ties
 # that a bf16 rounding flips leave about 95% alike
 MIXTRAL_MIN_AGREEMENT = 0.9
+# slice 7: fig4's widest cells (benchmarks/figures.py:55-63: 80 lanes,
+# 64 hot) for the three dynamic-2PL schemes, and fig6's dual-partition
+# cell of the partitioned store (:157-170)
+DL_PROTOCOLS = ("twopl_waitdie", "twopl_waitfor", "twopl_dreadlocks")
+YCSB_FIG6 = dict(YCSB_FULL, num_hot=0, partitions_per_txn=2,
+                 num_partitions=64)
+PSTORE_FULL = dict(protocol="partitioned_store", n_exec=64)
+SLICE7_CELLS = tuple((p, dict(protocol=p, n_exec=80), YCSB_FULL)
+                     for p in DL_PROTOCOLS) + (
+    ("partitioned_store", PSTORE_FULL, YCSB_FIG6),)
 BATCH_CELLS = (("dgcc", DGCC_FULL, YCSB_FULL),
                ("quecc", QUECC_FULL, YCSB_FULL),
                ("quecc_frag_pipe", QUECC_FRAG_PIPE_FULL, YCSB_FIG14),
@@ -1994,10 +2026,14 @@ def replay_goldens(device) -> None:
         print(f"golden {name}: bit-exact ({time.time() - t0:.3f} s)")
 
 
-def run_cell(name, eng_kw, workload, device, **extra):
+def run_cell(name, eng_kw, workload, device, sim=SIM_FULL,
+             deadlock_aborts=False, **extra):
+    """One run through ``run_simulation``: finite results, commits, and
+    deadlock aborts where ``deadlock_aborts`` (None: unchecked), none
+    otherwise."""
     from repro_torch.core.engine import EngineConfig, run_simulation
 
-    cfg = EngineConfig(**eng_kw, **SIM_FULL, **extra)
+    cfg = EngineConfig(**eng_kw, **sim, **extra)
     t0 = time.time()
     res = run_simulation(cfg, workload, device=device)
     wall = time.time() - t0
@@ -2006,7 +2042,8 @@ def run_cell(name, eng_kw, workload, device, **extra):
     for v in (res.throughput_txn_s, *res.breakdown.values()):
         if v != v or abs(v) == float("inf"):
             raise AssertionError(f"{name}: non-finite result {v}")
-    if res.commits <= 0 or res.aborts_deadlock != 0:
+    if res.commits <= 0 or (deadlock_aborts is not None and (
+            res.aborts_deadlock > 0) != deadlock_aborts):
         raise AssertionError(f"{name}: {res.commits} commits, "
                              f"{res.aborts_deadlock} deadlock aborts")
     print(f"{name}: commits {res.commits}, simulated throughput_txn_s "
@@ -2025,18 +2062,71 @@ def make_full_workload(wl_kw):
     return wl
 
 
-def reset_launches() -> None:
+def main_path_slice7(device) -> None:
+    """Phase 9: the dynamic-2PL baselines and the partitioned store at
+    the paper's width through ``run_simulation``, with the in-tree
+    oracles; plain PyTorch, so no kernel may launch."""
+    workloads = {name: make_full_workload(wl_kw)
+                 for name, _eng_kw, wl_kw in SLICE7_CELLS}
+    cells = {name: eng_kw for name, eng_kw, _wl_kw in SLICE7_CELLS}
+    reset_launches()
+    results = {}
+    for name, eng_kw in cells.items():
+        res = run_cell(name, eng_kw, workloads[name], device, sim=SIM_CUT,
+                       deadlock_aborts=name in DL_PROTOCOLS)
+        full = json.dumps(fingerprint(res, True), sort_keys=True)
+        print(f"{name}: fingerprint {json.dumps(fingerprint(res))}, with "
+              f"the metrics sha256 "
+              f"{hashlib.sha256(full.encode()).hexdigest()[:16]}")
+        results[name] = res
+    wl = workloads["twopl_waitfor"]
+    waitfor = cells["twopl_waitfor"]
+    csr = fingerprint(results["twopl_waitfor"], True)
+    dense = run_cell("twopl_waitfor release_path=dense", waitfor, wl,
+                     device, sim=SIM_CUT, deadlock_aborts=True,
+                     release_path="dense")
+    if fingerprint(dense, True) != csr:
+        raise AssertionError("twopl_waitfor: the csr and dense paths "
+                             "diverged")
+    print("twopl_waitfor: csr and dense fingerprints identical (metrics "
+          "incl.)")
+    no_leap = fingerprint(run_cell(
+        "twopl_waitfor event_leap=False", waitfor, wl, device, sim=SIM_CUT,
+        deadlock_aborts=True, event_leap=False), True)
+    leap_steps = csr.pop("steps_executed")
+    dense_steps = no_leap.pop("steps_executed")
+    if no_leap != csr or dense_steps != no_leap["rounds_total"] \
+            or leap_steps > dense_steps:
+        raise AssertionError("twopl_waitfor: the leaping and dense runs "
+                             "diverged")
+    print(f"twopl_waitfor: leaping and dense fingerprints identical "
+          f"(metrics incl.; steps {leap_steps} / {dense_steps})")
+    counts = {name: ops.launches for name, ops in kernel_ops().items()}
+    if any(counts.values()):
+        raise AssertionError(f"the slice-7 path launched a kernel: {counts}")
+    print(f"slice 7 path: kernel launches {counts} (none on this path)")
+    profile_steps("slice 7", {
+        "twopl_waitdie": cells["twopl_waitdie"],
+        "twopl_dreadlocks": cells["twopl_dreadlocks"],
+        "deadlock_free": DF_FULL}, wl, device, warm=50, timed=50)
+
+
+def kernel_ops() -> dict:
+    """The five kernels' ops modules by name; each counts its launches."""
     from repro_torch.kernels.dep_wavefront import ops as dw_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.lock_grant import ops as lg_ops
     from repro_torch.kernels.moe_dispatch import ops as md_ops
     from repro_torch.kernels.rwkv6_scan import ops as rw_ops
 
-    lg_ops.launches = 0
-    dw_ops.launches = 0
-    fa_ops.launches = 0
-    rw_ops.launches = 0
-    md_ops.launches = 0
+    return {"lock_grant": lg_ops, "dep_wavefront": dw_ops,
+            "flash_attention": fa_ops, "rwkv6_scan": rw_ops,
+            "moe_dispatch": md_ops}
+
+
+def reset_launches() -> None:
+    for ops in kernel_ops().values():
+        ops.launches = 0
 
 
 def main_path_slice1(device) -> int:
@@ -2046,7 +2136,8 @@ def main_path_slice1(device) -> int:
 
     wl = make_full_workload(YCSB_FULL)
     reset_launches()
-    res_k = run_cell("orthrus kernel_impl=auto", ORTHRUS_FULL, wl, device)
+    res_k = run_cell("orthrus kernel_impl=auto", ORTHRUS_FULL, wl, device,
+                     sim=SIM_CUT)
     launches = ops.launches
     print(f"orthrus kernel_impl=auto: lock_grant launches {launches}, "
           f"steps_executed {res_k.raw['steps_executed']}")
@@ -2054,8 +2145,8 @@ def main_path_slice1(device) -> int:
         raise AssertionError("the ORTHRUS run did not launch lock_grant "
                              "once per step")
     res_j = run_cell("orthrus kernel_impl=jnp (plain)", ORTHRUS_FULL, wl,
-                     device, kernel_impl="jnp")
-    run_cell("deadlock_free", DF_FULL, wl, device)
+                     device, sim=SIM_CUT, kernel_impl="jnp")
+    run_cell("deadlock_free", DF_FULL, wl, device, sim=SIM_CUT)
     if ops.launches != launches:
         raise AssertionError("a plain-path run launched lock_grant")
     if fingerprint(res_k, True) != fingerprint(res_j, True):
@@ -2773,6 +2864,7 @@ def main() -> int:
     slice5 = phase("main path, slice 5", main_path_slice5, device, mixtral)
     rows[4]["launches"] = slice5["moe_dispatch"]
     rows[2]["launches"] += slice5["flash_attention"]
+    phase("main path, slice 7", main_path_slice7, device)
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -6,12 +6,14 @@ cycles); in each round every lane interacts with the lock table at most
 once. See the reference module for the protocol families and the cost
 model; this module keeps its names, row constants and stage numbering.
 
-Ported so far, closed loop, ``release_path="csr"``, one round per
-dispatch, with event leaping on or off:
+Ported so far, closed loop, ``release_path`` "csr" or "dense", one
+round per dispatch, with event leaping on or off:
 
 * ``make_step``: ``orthrus`` (CC lanes own key partitions, exec lanes
-  multiplex a window of transactions, P1 + P2) and ``deadlock_free``
-  (canonical-order acquisition, P2 alone);
+  multiplex a window of transactions, P1 + P2), ``deadlock_free``
+  (canonical-order acquisition, P2 alone), the dynamic-2PL baselines
+  ``twopl_waitdie``, ``twopl_waitfor`` and ``twopl_dreadlocks``, and
+  ``partitioned_store`` (H-Store partition locks and per-lane streams);
 * ``make_batch_step``: the batch-planned ``dgcc``, ``quecc`` and
   ``scheduled``, with or without ``fragment_exec`` and
   ``inter_batch_pipeline``, and the planner-lane model
@@ -22,11 +24,12 @@ port that brings it.
 
 State is a dict of int32 / bool tensors on one device, as in the
 reference, with one difference: the arrays of ``DROP_ROW_ARRAYS`` (the
-per-record ``wh``, ``rc``, ``heat``, ``line``, ``agg_sum`` and the batch
-engine's per-unit ``done`` and per-txn ``txn_left``) carry one extra
-last row. The reference scatters into them with ``mode="drop"`` at the
-index one past the end; here those writes land in the extra row, which
-nothing reads. ``repro_torch.core.convert`` adds and strips it.
+per-record ``wh``, ``rc``, ``heat``, ``line``, ``agg_sum``, the reader
+bitmask ``rdr``, and the batch engine's per-unit ``done`` and per-txn
+``txn_left``) carry one extra last row. The reference scatters into
+them with ``mode="drop"`` at the index one past the end; here those
+writes land in the extra row, which nothing reads.
+``repro_torch.core.convert`` adds and strips it.
 """
 
 from __future__ import annotations
@@ -113,7 +116,8 @@ BATCH_SLOT_COLS = (
 
 # State arrays with one extra last row for the reference's dropped
 # writes: per record [R + 1, ...], per unit done [NU + 1], txn_left [N + 1].
-DROP_ROW_ARRAYS = ("wh", "rc", "heat", "line", "agg_sum", "done", "txn_left")
+DROP_ROW_ARRAYS = ("wh", "rc", "heat", "line", "agg_sum", "rdr", "done",
+                   "txn_left")
 
 # Sharer-heat epoch length (rounds) for the coherence model.
 EPOCH_BITS = 12
@@ -143,13 +147,6 @@ PROTOCOLS = (
     "quecc",
     "scheduled",
 )
-
-# Protocols this port runs; the rest name the slice that brings them.
-PORTED_PROTOCOLS = ("deadlock_free", "orthrus", "dgcc", "quecc", "scheduled")
-_SLICE_OF_PROTOCOL = {
-    "twopl_waitdie": 7, "twopl_waitfor": 7, "twopl_dreadlocks": 7,
-    "partitioned_store": 7,
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,11 +348,6 @@ class EngineConfig:
 
 def check_ported(cfg: EngineConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.protocol not in PORTED_PROTOCOLS:
-        raise NotImplementedError(
-            f"protocol {cfg.protocol!r} is not ported yet "
-            f"(slice {_SLICE_OF_PROTOCOL[cfg.protocol]})"
-        )
     if cfg.epoch_interval_rounds > 0:
         raise NotImplementedError(
             "open epoch arrival (epoch_interval_rounds > 0) and the "
@@ -369,10 +361,6 @@ def check_ported(cfg: EngineConfig) -> None:
     if cfg.dispatch_rounds > 1:
         raise NotImplementedError(
             "rounds_per_dispatch > 1 is not ported yet (slice 7)"
-        )
-    if cfg.release_path != "csr":
-        raise NotImplementedError(
-            'release_path="dense" is not ported yet (slice 7)'
         )
     if cfg.state_layout != "packed":
         raise NotImplementedError(
@@ -642,6 +630,12 @@ def _state0(cfg: EngineConfig, num_records: int, T: int, K: int,
         s["agg_sum"] = z(R + 1, 3)
         s["agg_prev_idx"] = full((T, K), R)
         s["agg_prev_upd"] = z(T, K, 3)
+    if cfg.release_path == "csr" and cfg.deadlock_scheme != "none":
+        # csr wait-for: carried per-record packed reader bitmask (bit u
+        # of rdr[q, u // 32] = slot u holds >= 1 granted read entry on
+        # record q), kept at grant and release; the deadlock stage
+        # gathers waiters' digests from it
+        s["rdr"] = z(R + 1, (T + 31) // 32)
     return s
 
 
@@ -690,6 +684,11 @@ def grant_chain(keys, modes, pend2d, rel_entries, enq, wh_r, rc_r, ent_slot,
     return (grant | self_grant).view(T, K)
 
 
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wraparound."""
+    return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(I32)
+
+
 def make_step(cfg: EngineConfig, meta: PlanMeta,
               device: torch.device | str = "cuda"):
     """Build the single-round transition for this config and plan shape.
@@ -710,11 +709,7 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     n_cc = max(cfg.n_cc, 1)
     cap_keys = cm.cc_keys_per_round
     orthrus = cfg.is_orthrus
-    if meta.lane_cols > 0:
-        raise NotImplementedError(
-            "H-Store lane streams (partitioned_store) are not ported yet "
-            "(slice 7)"
-        )
+    has_lane_stream = meta.lane_cols > 0
 
     def const(v):
         return torch.tensor(v, dtype=I32, device=dev)
@@ -737,11 +732,35 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     c_exec = const(CAT_EXEC)
     c_empty, c_backoff = const(EMPTY), const(BACKOFF)
 
-    lock_op_cycles = cm.lock_op_cycles
-    shared_index = not cfg.split_index
+    lock_op_cycles = (
+        cm.partition_lock_cycles
+        if cfg.protocol == "partitioned_store"
+        else cm.lock_op_cycles
+    )
+    # shared-index cache penalty (paper §4.3): partitioned-store and SPLIT
+    # variants probe thread-local indexes; everyone else shares one index
+    shared_index = cfg.protocol != "partitioned_store" and not cfg.split_index
     exec_cycles_per_op = cm.exec_op_cycles + (
         cm.shared_index_penalty_cycles if shared_index else 0
     )
+    dl = cfg.deadlock_scheme
+    dl_wait_cycles = {
+        "waitfor": cm.waitfor_maintain_cycles,
+        "dreadlocks": cm.dreadlocks_spin_cycles,
+    }.get(dl, 0)
+    # compact CSR release / wait-for path (EngineConfig.release_path)
+    use_csr = cfg.release_path == "csr" and not orthrus
+    need_rdr = use_csr and dl != "none"
+    # reader-bitmask word and bit per slot; bit 31 is INT32_MIN, and the
+    # words add and subtract it with int32 wraparound, as the reference
+    n_words = (T + 31) // 32
+    rdr_word = (slot_ids // 32).long()
+    rdr_shift = slot_ids % 32
+    bit64 = torch.ones(T, dtype=torch.int64, device=dev) << rdr_shift
+    rdr_bit = _wrap32(bit64)
+    rdr_unbit = _wrap32(-bit64)
+    if dl in ("waitfor", "dreadlocks"):
+        own = torch.eye(T, dtype=torch.bool, device=dev)
     # the grant decision (stage 7): on the kernel path the whole pass is
     # one launch of lock_grant's fused form up to its capacity, its
     # output allocated here once; above it the sorted form runs between
@@ -766,6 +785,12 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     def take_col(a, col):
         """a[t, col[t]] for a [T, K] array and a [T] column index."""
         return torch.gather(a, 1, col[:, None]).squeeze(1)
+
+    def lane_next(lane_stream, lane_ctr):
+        """lane_stream[slot, lane_ctr % M] per slot; slots past the
+        stream's rows read its last row (the reference's gather clamps)."""
+        rows = torch.clamp(slot_ids, max=lane_stream.shape[0] - 1).long()
+        return lane_stream[rows, (lane_ctr % meta.lane_cols).long()]
 
     def step(p, s, r_end):
         s = dict(s)
@@ -798,10 +823,18 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
 
         # ------------------------------------------ 1+2. admission & retry
         empty = phase == EMPTY
-        rank = torch.cumsum(empty, 0, dtype=I32) - 1
-        new_tid = s["next_txn"] + rank
-        adm = empty
-        new_widx = new_tid % N
+        if has_lane_stream:
+            # H-Store routing: each worker lane pulls the next txn homed
+            # to its partition (lanes with no homed txns stay idle)
+            new_widx = lane_next(p["lane_stream"], lane_ctr)
+            adm = empty & (new_widx >= 0)
+            new_tid = lane_ctr * T + slot_ids
+            lane_ctr = torch.where(adm, lane_ctr + 1, lane_ctr)
+        else:
+            rank = torch.cumsum(empty, 0, dtype=I32) - 1
+            new_tid = s["next_txn"] + rank
+            adm = empty
+            new_widx = new_tid % N
         s["next_txn"] = s["next_txn"] + adm.sum(dtype=I32)
         retry = (phase == BACKOFF) & free
         reset = adm | retry
@@ -921,6 +954,24 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
                 0, torch.where(is_rd, rel_k, R).reshape(-1),
                 -is_rd.reshape(-1).to(I32),
             )
+            if need_rdr:
+                # clear the slot's reader bit once per *distinct* released
+                # read key: a slot releases all its granted entries at
+                # once, and re-entrant reads may hold several columns on
+                # one record; only the first contributes
+                dup = (
+                    (keys[:, :, None] == keys[:, None, :])
+                    & is_rd[:, None, :]
+                    & k_before
+                ).any(-1)
+                first_rd = is_rd & ~dup
+                cell = torch.where(first_rd, rel_k, R) * n_words + (
+                    rdr_word[:, None])
+                s["rdr"].view(-1).index_add_(
+                    0, cell.reshape(-1),
+                    torch.where(first_rd, rdr_unbit[:, None], c_zero)
+                    .reshape(-1),
+                )
             s["granted"] = s["granted"] & ~rel_entries
 
         # ------------------------------------------------ 6. requests: want
@@ -980,31 +1031,43 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
                 g_rd.reshape(-1).to(I32),
             )
         else:
-            # single pending request per slot, at column kptr: compact
-            # CSR grant over the <= T requests sorted by (key, stamp)
+            # single pending request per slot, at column kptr
             kptr_c = torch.clamp(kptr, max=K - 1).long()
             pend_t = take_col(pend2d, kptr_c)
             rkey = take_col(keys, kptr_c)
             renq = take_col(s["enq"], kptr_c)
             rmode = take_col(modes, kptr_c)
             is_wr_req = pend_t & (rmode == MODE_WRITE)
-            skey = torch.where(pend_t, rkey, _IMAX)
-            order = lex_order(skey, renq)
-            ks = skey[order]
-            eqs = renq[order]
-            seg_id = (torch.cumsum(segment_starts(ks), 0, dtype=I32) - 1).long()
-            imax_t = torch.full((T,), _IMAX, dtype=I32, device=dev)
-            min_req_seg = imax_t.scatter_reduce(
-                0, seg_id, eqs, "amin", include_self=True
-            )
-            min_wr_seg = imax_t.scatter_reduce(
-                0, seg_id, torch.where(is_wr_req[order], eqs, _IMAX), "amin",
-                include_self=True,
-            )
-            min_req = torch.empty_like(renq)
-            min_req[order] = min_req_seg[seg_id]
-            min_wr = torch.empty_like(renq)
-            min_wr[order] = min_wr_seg[seg_id]
+            if use_csr:
+                # compact CSR grant over the <= T requests sorted by
+                # (key, stamp): segmented minima of the stamps
+                skey = torch.where(pend_t, rkey, _IMAX)
+                order = lex_order(skey, renq)
+                ks = skey[order]
+                eqs = renq[order]
+                seg_id = (
+                    torch.cumsum(segment_starts(ks), 0, dtype=I32) - 1
+                ).long()
+                imax_t = torch.full((T,), _IMAX, dtype=I32, device=dev)
+                min_req_seg = imax_t.scatter_reduce(
+                    0, seg_id, eqs, "amin", include_self=True
+                )
+                min_wr_seg = imax_t.scatter_reduce(
+                    0, seg_id, torch.where(is_wr_req[order], eqs, _IMAX),
+                    "amin", include_self=True,
+                )
+                min_req = torch.empty_like(renq)
+                min_req[order] = min_req_seg[seg_id]
+                min_wr = torch.empty_like(renq)
+                min_wr[order] = min_wr_seg[seg_id]
+            else:
+                # the all-pairs [T, T] stamp comparison
+                same_key = (rkey[None, :] == rkey[:, None]) & pend_t[None, :]
+                enq_b = renq[None, :].expand(T, T)
+                min_wr = torch.where(
+                    same_key & is_wr_req[None, :], enq_b, _IMAX
+                ).amin(dim=1)
+                min_req = torch.where(same_key, enq_b, _IMAX).amin(dim=1)
             rkey_c = torch.clamp(rkey, max=R - 1).long()
             whv = wh_r[rkey_c]
             rc_t = rc_r[rkey_c]
@@ -1024,15 +1087,120 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
             s["rc"].index_add_(
                 0, torch.where(g_rd_t, rkey, R), g_rd_t.to(I32)
             )
+            if need_rdr:
+                # reader bitmask: set the slot's bit on its *first*
+                # granted read column of the record; a re-entrant read
+                # increments rc but the bit tracks distinct membership
+                already = (
+                    (keys == rkey[:, None])
+                    & s["granted"]
+                    & (modes == MODE_READ)
+                ).any(dim=1)
+                new_rd = g_rd_t & ~already
+                s["rdr"].view(-1).index_add_(
+                    0, torch.where(new_rd, rkey, R) * n_words + rdr_word,
+                    torch.where(new_rd, rdr_bit, c_zero),
+                )
         s["granted"] = s["granted"] | grant
 
         # ------------------------------------------------ 8. deadlock logic
-        # planned protocols: no deadlock handling, abort_dl == 0
+        # (runs before cost charging so a wait-die "die" probe, a read of
+        # the holder's timestamp, costs latency but does not occupy the
+        # record's meta-data line the way a queue mutation does); the
+        # planned protocols have none, abort_dl == 0
+        abort_dl = None
+        if dl != "none":
+            kptr_c = torch.clamp(kptr, max=K - 1).long()
+            blocked = (phase == ACQ) & take_col(
+                s["want"] & ~s["granted"], kptr_c
+            )
+            waitkey = torch.where(blocked, take_col(keys, kptr_c),
+                                  KEY_SENTINEL)
+            waiting = waitkey != KEY_SENTINEL
+            mymode = take_col(modes, kptr_c)
+            # adj[t, u]: t waits on a lock u holds in a conflicting mode
+            if use_csr:
+                # compact wait-for: the writer holding my key is one
+                # lock-table gather; read holders come from the carried
+                # reader bitmask (bit u of word u // 32). A read holder
+                # conflicts only with a write waiter; a write holder
+                # conflicts with everyone.
+                wt_c = torch.clamp(waitkey, max=R - 1).long()
+                hw = s["wh"][wt_c]  # [T] writer of my key (-1 = none)
+                dig = s["rdr"][wt_c]  # [T, W] packed reader bits
+                rd_bits = dig[:, rdr_word]  # [T, T]
+                adj_rd = ((rd_bits >> rdr_shift[None, :]) & 1) != 0
+                adj = (
+                    (slot_ids[None, :] == hw[:, None])
+                    | (adj_rd & (mymode == MODE_WRITE)[:, None])
+                )
+            else:
+                key_eq = keys[None, :, :] == waitkey[:, None, None]
+                conflict = (mymode[:, None, None] == MODE_WRITE) | (
+                    modes[None, :, :] == MODE_WRITE
+                )
+                adj = (key_eq & s["granted"][None, :, :] & conflict).any(-1)
+            adj = (
+                adj
+                & waiting[:, None]
+                & (slot_ids[None, :] != slot_ids[:, None])
+                & (tid[None, :] >= 0)
+            )
+            if dl == "waitdie":
+                # a waiter dies whenever its wait-for edge points at an
+                # older holder, re-checked on every holder change; the
+                # "die" probe is costed as latency only in stage 9
+                newly_waiting = waiting & ~waited
+                older_holder = (adj & (ts[None, :] < ts[:, None])).any(-1)
+                abort_dl = older_holder & waiting
+                dl_debt = dl_debt + torch.where(
+                    newly_waiting, cm.waitdie_check_cycles, c_zero
+                )
+            else:
+                # one propagation step per round (dreadlocks-style
+                # digests); the bool product is an OR of ANDs
+                reach = own | (adj[:, :, None] & s["reach"][None]).any(1)
+                s["reach"] = torch.where(waiting[:, None], reach, own)
+                reach_t = s["reach"].t()
+                in_cycle = (adj & reach_t).any(-1)  # holder reaches me
+                # abort the youngest member of the detected cycle;
+                # waitfor and dreadlocks are logically equivalent
+                # detectors (paper §4.1) and differ in their costs
+                scc = s["reach"] & reach_t
+                scc_ts_max = torch.where(
+                    scc & in_cycle[None, :], ts[None, :], -1
+                ).amax(dim=1)
+                abort_dl = in_cycle & (ts >= scc_ts_max)
+                dl_debt = dl_debt + torch.where(
+                    waiting, dl_wait_cycles, c_zero
+                )
+            waited = waiting
+            # convert deadlock-handling debt into lane busy time
+            debt_rounds = dl_debt // cm.cycles_per_round
+            has_debt = debt_rounds > 0
+            busy_until = torch.where(
+                has_debt, torch.maximum(busy_until, r) + debt_rounds,
+                busy_until,
+            )
+            busy_kind = torch.where(has_debt, const(CAT_DL), busy_kind)
+            dl_debt = dl_debt % cm.cycles_per_round
+
+            abort_dl = abort_dl & waiting
+            s["aborts_dl"] = s["aborts_dl"] + abort_dl.sum(dtype=I32)
+            s["wasted"] = s["wasted"] + torch.where(
+                abort_dl, kptr, c_zero
+            ).sum(dtype=I32)
+            phase = torch.where(abort_dl, const(REL), phase)
+            committing = committing & ~abort_dl
+            release_at = torch.where(abort_dl, r, release_at)
+            s["want"] = s["want"] & ~abort_dl[:, None]
 
         # ------------------------------------------------ 9. line-cost model
         if not orthrus:
             newop = newop2d
-            mutate = newop  # no deadlock aborts: every fresh op enqueues
+            mutate = newop  # fresh ops enqueue ...
+            if abort_dl is not None:
+                mutate = mutate & ~abort_dl[:, None]  # ... dies do not
             active2d = pend2d | rel_entries
             aidx = torch.where(active2d, keys, R)
             sum_upd = torch.stack(
@@ -1049,6 +1217,7 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
             e = r >> EPOCH_BITS
             opk_r = torch.clamp(torch.where(newop, keys, 0), max=R - 1).long()
             seg = agg_s[opk_r]  # [T, K, 3], this round's per-key totals
+            contend = seg[..., 0]
             new_in_seg = seg[..., 1]
             mut_in_seg = seg[..., 2]
             heat_k = s["heat"][opk_r]  # [T, K, 3] = (ep, cnt_cur, cnt_prev)
@@ -1068,6 +1237,13 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
                 * torch.clamp(sharers, 1, cfg.n_exec - 1),
                 c_zero,
             )
+            if dl == "dreadlocks":
+                # waiters spin on the holders' digests: every queued
+                # waiter keeps the lock meta-data lines hot, so each op
+                # pays extra coherence in the current queue (paper §4.4.1)
+                coh = coh + cm.dreadlocks_spin_cycles * torch.clamp(
+                    contend - 1, min=0
+                )
             dur = rounds_of(lock_op_cycles + coh)
             lnf_cur = line_k[..., 0]
             backlog = torch.clamp(
@@ -1106,7 +1282,28 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
 
         # ------------------------------------------------ 10. transitions
         free = busy_until <= r
-        if not orthrus:  # deadlock_free
+        if cfg.is_dynamic_2pl:
+            # one key per go; the txn's extra exec ops are charged on
+            # its last key
+            cur_granted = take_col(
+                s["granted"], torch.clamp(kptr, max=K - 1).long()
+            )
+            go = (phase == ACQ) & free & cur_granted & ~abort_dl
+            last = go & (kptr + 1 >= nkeys)
+            extra = torch.clamp(execops - nkeys, min=0)
+            add = torch.where(
+                go,
+                exec_rounds_one
+                + torch.where(last, extra * exec_rounds_one, c_zero),
+                c_zero,
+            )
+            busy_until = torch.where(
+                go, torch.maximum(busy_until, r) + add, busy_until
+            )
+            busy_kind = torch.where(go, c_exec, busy_kind)
+            kptr = torch.where(go, kptr + 1, kptr)
+            phase = torch.where(last, const(EXEC), phase)
+        elif not orthrus:  # deadlock_free, partitioned_store
             cur_granted = take_col(
                 s["granted"], torch.clamp(kptr, max=K - 1).long()
             )
@@ -1244,8 +1441,13 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
                 (phase == MSG) & (msg_arrive > r), msg_arrive, _IMAX))
             cand = torch.minimum(cand, torch.where(
                 (phase == REL) & (release_at > r), release_at, _IMAX))
+            if has_lane_stream:
+                # a lane with no homed txn left to pull stays idle
+                can_adm = lane_next(p["lane_stream"], lane_ctr) >= 0
+            else:
+                can_adm = True
             act_next = (
-                (phase == EMPTY)
+                ((phase == EMPTY) & can_adm)
                 | ((phase == MSG) & (msg_arrive <= r))
                 | ((phase == REL) & (release_at <= r))
                 | (free2 & ((phase == INIT) | (phase == BACKOFF)))
@@ -1266,6 +1468,11 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
                     torch.clamp(kptr, max=K - 1).long(),
                 )
                 act_next = act_next | ((phase == ACQ) & free2 & ~blocked)
+            if dl in ("waitfor", "dreadlocks"):
+                # graph detectors evolve every waiting round (reach
+                # propagation and per-round spin debt): stay dense while
+                # any slot waits
+                act_next = act_next | waited.any()
             cand = torch.where(act_next, r + 1, cand)
             nxt = torch.minimum(torch.maximum(cand.min(), r + 1), r_end)
         else:

@@ -22,7 +22,17 @@ CELLS = {
     "orthrus_4_12_4": dict(protocol="orthrus", n_cc=4, n_exec=12, window=4),
     "df_8": dict(protocol="deadlock_free", n_exec=8),
     "df_16": dict(protocol="deadlock_free", n_exec=16),
+    # the paper's dynamic-2PL baselines and the partitioned store
+    "waitdie_8": dict(protocol="twopl_waitdie", n_exec=8),
+    "waitfor_8": dict(protocol="twopl_waitfor", n_exec=8),
+    "waitfor_16": dict(protocol="twopl_waitfor", n_exec=16),
+    "dreadlocks_8": dict(protocol="twopl_dreadlocks", n_exec=8),
+    "pstore_8": dict(protocol="partitioned_store", n_exec=8),
 }
+# Fig 1's path: read-only YCSB under wait-die. Every grant sets a reader
+# bit and every release clears one; 40 slots span two bitmask words and
+# use bit 31 (the int32 sign bit) of the first
+YCSB_READ_ONLY = dict(WORKLOADS["ycsb_hot"], read_only=True)
 # warmup off the chunk grid: the host loop splits the chunk at warmup
 SIM = dict(max_rounds=900, warmup_rounds=250, chunk_rounds=200,
            target_commits=10**9)
@@ -78,6 +88,15 @@ def test_fingerprint_matches_reference(cell, wl):
     assert got.raw["steps_executed"] == ref.raw["steps_executed"]
     assert got.metrics.breakdown_ext == ref.metrics.breakdown_ext
     assert got.metrics.summary_row() == ref.metrics.summary_row()
+
+
+def test_read_only_fingerprint_matches_reference():
+    got, ref = _both(dict(protocol="twopl_waitdie", n_exec=40),
+                     YCSB_READ_ONLY, SIM)
+    assert fingerprint(got, include_metrics=True) == fingerprint(
+        ref, include_metrics=True)
+    assert got.raw["steps_executed"] == ref.raw["steps_executed"]
+    assert got.commits > 0 and got.aborts_deadlock == 0
 
 
 @pytest.mark.parametrize("cell", ["orthrus_2_6_2", "df_8"])

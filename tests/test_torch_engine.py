@@ -1,7 +1,9 @@
 """The port's round engine against the JAX reference, step by step, plus
-its own leap-vs-dense identity, config checks and unported paths."""
+its own leap-vs-dense and csr-vs-dense identities, config checks and
+unported paths."""
 
 import dataclasses
+import functools
 
 import pytest
 
@@ -38,6 +40,15 @@ SCHED = dict(protocol="scheduled", n_exec=5)
 DGCC_FRAG = dict(DGCC, fragment_exec=True)
 QUECC_PIPE = dict(QUECC, fragment_exec=True, inter_batch_pipeline=True)
 DGCC_LANES = dict(DGCC, n_planner_lanes=1)
+# the dynamic-2PL baselines and the partitioned store (lock-table
+# engine). At 40 slots the reader bitmask spans two words and bit 31 of
+# the first (the int32 sign bit) is in use
+WAITDIE = dict(protocol="twopl_waitdie", n_exec=40)
+WAITFOR = dict(protocol="twopl_waitfor", n_exec=40)
+DREADLOCKS = dict(protocol="twopl_dreadlocks", n_exec=24)
+PSTORE = dict(protocol="partitioned_store", n_exec=4)
+# YCSB with a quarter of its accesses turned into reads (see _workloads)
+YCSB_MIXED = "ycsb_mixed"
 SIM = dict(max_rounds=800, warmup_rounds=250, chunk_rounds=200,
            target_commits=10**9)
 
@@ -47,8 +58,22 @@ def _no_rebase(state):
 
 
 def _workloads(wl_kw):
-    return (workloads.make_workload(workloads.WorkloadConfig(**wl_kw)),
+    """The (port, reference) workloads of one config. YCSB_MIXED is YCSB
+    with a quarter of its accesses turned into reads (seeded numpy):
+    readers fill the reader bitmask while writers still deadlock (TPC-C's
+    programs never do under wait-for)."""
+    mixed = wl_kw == YCSB_MIXED
+    if mixed:
+        wl_kw = YCSB
+    pair = (workloads.make_workload(workloads.WorkloadConfig(**wl_kw)),
             ref_workloads.make_workload(ref_workloads.WorkloadConfig(**wl_kw)))
+    if mixed:
+        rng = np.random.default_rng(0)
+        modes = np.where(rng.random(pair[0].modes.shape) < 0.25,
+                         workloads.MODE_READ, workloads.MODE_WRITE)
+        pair = tuple(dataclasses.replace(w, modes=modes.astype(np.int32))
+                     for w in pair)
+    return pair
 
 
 @pytest.mark.parametrize("eng_kw,wl_kw,leap,impl", [
@@ -71,6 +96,12 @@ def _workloads(wl_kw):
     (QUECC_PIPE, YCSB_MP, False, "pallas"),
     (DGCC_LANES, YCSB_B, True, "pallas"),
     (DGCC_LANES, YCSB_B, False, "jnp"),
+    (dict(WAITDIE, n_exec=4), TPCC, True, "jnp"),
+    (WAITDIE, YCSB_MIXED, False, "jnp"),
+    (WAITFOR, YCSB_MIXED, True, "jnp"),
+    (dict(WAITFOR, release_path="dense"), YCSB_MIXED, False, "jnp"),
+    (DREADLOCKS, YCSB, True, "jnp"),
+    (dict(PSTORE, window=2), YCSB, True, "jnp"),
 ], ids=["orthrus-leap", "orthrus-dense", "orthrus-tpcc-kernel-wrapper",
         "df-leap", "df-dense", "df-tpcc",
         "dgcc-leap", "dgcc-dense-kernel-wrapper", "dgcc-tpcc-kernel-wrapper",
@@ -79,7 +110,9 @@ def _workloads(wl_kw):
         "dgcc-frag-leap-kernel-wrapper", "dgcc-frag-dense",
         "quecc-frag-pipe-leap", "quecc-frag-pipe-dense-kernel-wrapper",
         "dgcc-planner-lanes-leap-kernel-wrapper",
-        "dgcc-planner-lanes-dense"])
+        "dgcc-planner-lanes-dense", "waitdie-tpcc", "waitdie-mixed-dense",
+        "waitfor-mixed", "waitfor-mixed-release-dense", "dreadlocks",
+        "pstore-window2"])
 def test_step_matches_reference(eng_kw, wl_kw, leap, impl):
     """From one carried-across state, >= 200 steps of both engines (with
     the chunk runner's stamp rebase and chunk bounds) leave every state
@@ -131,6 +164,8 @@ def test_step_matches_reference(eng_kw, wl_kw, leap, impl):
                 np.testing.assert_array_equal(
                     got[k], np.asarray(v), err_msg=f"step {n_steps}: {k}")
     assert int(s_ref["commits"]) > 0
+    if cfg.deadlock_scheme != "none":
+        assert int(s_ref["aborts_dl"]) > 0
 
 
 @pytest.mark.parametrize("eng_kw", [ORTHRUS, DF], ids=["orthrus", "df"])
@@ -148,14 +183,157 @@ def test_batch_leap_matches_dense(eng_kw, wl_kw):
     _assert_leap_matches_dense(eng_kw, wl_kw)
 
 
+# the lock-table protocols with a deadlock stage or lane streams, each on
+# the workload that exercises it
+LOCK_TABLE_CELLS = {
+    "waitdie": (WAITDIE, YCSB_MIXED),
+    "waitfor": (WAITFOR, YCSB_MIXED),
+    "dreadlocks": (DREADLOCKS, YCSB_MIXED),
+    "pstore": (PSTORE, YCSB),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(LOCK_TABLE_CELLS))
+def test_lock_table_leap_matches_dense(cell):
+    _assert_leap_matches_dense(*LOCK_TABLE_CELLS[cell])
+
+
+@functools.cache
+def _port_run(cfg, wl_key):
+    """One port run on the CPU, memoized across this module's tests."""
+    wl, _ = _workloads(wl_key if wl_key == YCSB_MIXED else dict(wl_key))
+    return engine.run_simulation(cfg, wl, device="cpu")
+
+
+def _run(eng_kw, wl_kw, **kw):
+    wl_key = wl_kw if wl_kw == YCSB_MIXED else tuple(sorted(wl_kw.items()))
+    return _port_run(engine.EngineConfig(**eng_kw, **kw, **SIM), wl_key)
+
+
+@pytest.mark.parametrize("cell", sorted(LOCK_TABLE_CELLS) + ["df"])
+def test_csr_release_matches_dense_oracle(cell):
+    """The compact CSR grant and wait-for path (sorted requests, the
+    carried reader bitmask) reports exactly what the dense [T, T(, K)]
+    formulation does, the port's in-tree oracle."""
+    eng_kw, wl_kw = LOCK_TABLE_CELLS.get(cell, (DF, TPCC))
+    csr = _run(eng_kw, wl_kw)
+    dense = _run(eng_kw, wl_kw, release_path="dense")
+    assert fingerprint(dense, include_metrics=True) == fingerprint(
+        csr, include_metrics=True)
+    assert dense.raw["steps_executed"] == csr.raw["steps_executed"]
+    assert csr.commits > 0
+    if cell not in ("pstore", "df"):
+        assert csr.aborts_deadlock > 0
+
+
+@pytest.fixture(scope="module")
+def waitfor_mid_run():
+    """The reference's csr wait-for on mixed YCSB, stepped to the first
+    state in which ``reach`` holds a path between two slots while the
+    reader bitmask ``rdr`` is non-zero: (plan arrays, state), numpy."""
+    _, ref_wl = _workloads(YCSB_MIXED)
+    ref_cfg = ref_engine.EngineConfig(**WAITFOR)
+    ref_plan = ref_engine.make_plan(ref_cfg, ref_wl)
+    meta = ref_engine.plan_meta(ref_cfg, ref_plan)
+    p_np = ref_engine.plan_device(ref_cfg, ref_plan)
+    p_ref = {k: jnp.asarray(v) for k, v in p_np.items()}
+    ref_step = jax.jit(ref_engine.make_step(ref_cfg, meta))
+    ref_rebase = jax.jit(ref_engine.rebase_enq)
+    T = ref_cfg.n_slots
+    s = ref_engine._state0(ref_cfg, ref_plan.num_records, T, meta.max_keys)
+    off_diag = ~np.eye(T, dtype=bool)
+    for _ in range(5000):
+        s = ref_step(p_ref, ref_rebase(s), jnp.int32(10**6))
+        if (np.asarray(s["reach"]) & off_diag).any() and np.asarray(
+                s["rdr"]).any():
+            return p_np, {k: np.asarray(v) for k, v in s.items()}
+    raise AssertionError("no mid-run state with a wait-for path and readers")
+
+
+@pytest.mark.parametrize("release_path", ["csr", "dense"])
+def test_deadlock_stage_matches_reference_mid_run(waitfor_mid_run,
+                                                  release_path):
+    """From a mid-run wait-for state with a live reach matrix (and, on
+    the csr path, reader bits), one port step equals one reference step
+    array for array, and so does every step after it up to and past the
+    next deadlock abort. The dense path starts from the same state
+    without ``rdr``, which it does not carry."""
+    p_np, s_np = waitfor_mid_run
+    kw = dict(WAITFOR, release_path=release_path)
+    if release_path == "dense":
+        s_np = {k: v for k, v in s_np.items() if k != "rdr"}
+    ref_cfg = ref_engine.EngineConfig(**kw)
+    cfg = engine.EngineConfig(**kw)
+    _, ref_wl = _workloads(YCSB_MIXED)
+    meta = ref_engine.plan_meta(ref_cfg, ref_engine.make_plan(ref_cfg,
+                                                              ref_wl))
+    ref_step = jax.jit(ref_engine.make_step(ref_cfg, meta))
+    step = engine.make_step(cfg, meta, "cpu")
+    p_ref = {k: jnp.asarray(v) for k, v in p_np.items()}
+    p = plan_from_numpy(p_np, "cpu")
+    s_ref = {k: jnp.asarray(v) for k, v in s_np.items()}
+    s = state_from_numpy(s_np, "cpu")
+    r_end = int(s_np["r"]) + 10**6
+    aborts = int(s_np["aborts_dl"])
+    n = 0
+    while int(s_ref["aborts_dl"]) == aborts or n < 30:
+        assert n < 2000, "the detector never fired"
+        n += 1
+        s_ref = ref_step(p_ref, ref_engine.rebase_enq(s_ref),
+                         jnp.int32(r_end))
+        s = step(p, engine.rebase_enq(s),
+                 torch.tensor(r_end, dtype=torch.int32))
+        got = state_to_numpy(s)
+        assert sorted(got) == sorted(s_ref)
+        for k, v in s_ref.items():
+            np.testing.assert_array_equal(got[k], np.asarray(v),
+                                          err_msg=f"step {n}: {k}")
+
+
+def test_state_round_trip_keeps_rdr(waitfor_mid_run):
+    """``rdr`` carries the extra dropped-write row on the port's side and
+    round-trips through convert unchanged."""
+    _, s_np = waitfor_mid_run
+    s = state_from_numpy(s_np, "cpu")
+    R, words = s_np["rdr"].shape
+    assert words == 2 and s["rdr"].shape == (R + 1, 2)
+    assert s["rdr"].dtype == torch.int32 and not s["rdr"][R].any()
+    back = state_to_numpy(s)
+    assert sorted(back) == sorted(s_np)
+    for k, v in s_np.items():
+        assert back[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+def test_reader_bits_wrap_like_int32():
+    """Slot 31's reader bit is INT32_MIN: the port's words set, clear
+    and read it back with the reference's int32 wraparound."""
+    slot = np.arange(64, dtype=np.int32) % 32
+    bit64 = torch.ones(64, dtype=torch.int64) << torch.as_tensor(slot)
+    ref_bit = jnp.int32(1) << jnp.asarray(slot)
+    bit, unbit = engine._wrap32(bit64), engine._wrap32(-bit64)
+    np.testing.assert_array_equal(bit.numpy(), np.asarray(ref_bit))
+    np.testing.assert_array_equal(unbit.numpy(), np.asarray(-ref_bit))
+    # slot 31 sets its bit of word 0, slot 0 sets its bit, slot 31
+    # clears and sets again; index 1 is the dropped-write row
+    idx = [0, 0, 0, 1, 0]
+    vals = [31, 0, 31, 31, 31]
+    sign = [1, 1, -1, 1, 1]
+    word = torch.zeros(2, dtype=torch.int32)
+    ref = jnp.zeros(2, jnp.int32)
+    for i, v, sg in zip(idx, vals, sign):
+        add = (bit if sg > 0 else unbit)[v:v + 1]
+        word.index_add_(0, torch.tensor([i]), add)
+        ref = ref.at[i].add(ref_bit[v] if sg > 0 else -ref_bit[v])
+        np.testing.assert_array_equal(word.numpy(), np.asarray(ref))
+    assert int(word[0]) == 1 + engine.I32_MIN
+    held = ((word[0] >> torch.arange(32, dtype=torch.int32)) & 1) != 0
+    assert held.nonzero().flatten().tolist() == [0, 31]
+
+
 def _assert_leap_matches_dense(eng_kw, wl_kw):
-    wl, _ = _workloads(wl_kw)
-    res = {
-        leap: engine.run_simulation(
-            engine.EngineConfig(**eng_kw, event_leap=leap, **SIM), wl,
-            device="cpu")
-        for leap in (True, False)
-    }
+    res = {leap: _run(eng_kw, wl_kw, event_leap=leap)
+           for leap in (True, False)}
     fps = {k: fingerprint(v, include_metrics=True) for k, v in res.items()}
     assert fps[True].pop("steps_executed") <= fps[False].pop("steps_executed")
     assert res[False].raw["steps_executed"] == res[False].raw["rounds_total"]
@@ -259,10 +437,6 @@ def test_config_properties_match_reference(kw):
 
 
 UNPORTED = [
-    dict(protocol="twopl_waitdie", n_exec=4),
-    dict(protocol="twopl_waitfor", n_exec=4),
-    dict(protocol="twopl_dreadlocks", n_exec=4),
-    dict(protocol="partitioned_store", n_exec=4),
     dict(protocol="dgcc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
     dict(protocol="quecc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
     dict(protocol="scheduled", n_exec=4, epoch_interval_rounds=50),
@@ -270,7 +444,6 @@ UNPORTED = [
     dict(protocol="orthrus", n_exec=4, n_cc=2, retry_budget=3),
     dict(protocol="deadlock_free", n_exec=4, backoff_mode="exp"),
     dict(protocol="deadlock_free", n_exec=4, rounds_per_dispatch=2),
-    dict(protocol="deadlock_free", n_exec=4, release_path="dense"),
     dict(protocol="orthrus", n_exec=4, n_cc=2, state_layout="legacy"),
 ]
 

@@ -44,7 +44,8 @@ def test_ported_golden_cells():
     ported = {n for n, (_w, e) in CELLS.items() if _slice_of(e) is None}
     assert ported == {"orthrus", "deadlock_free", "deadlock_free_tpcc_ollp",
                       "dgcc", "quecc", "scheduled", "dgcc_frag", "quecc_frag",
-                      "quecc_frag_pipe"}
+                      "quecc_frag_pipe", "twopl_waitdie", "twopl_waitfor",
+                      "twopl_dreadlocks", "partitioned_store"}
     # the planner-lane goldens run open arrival, which slice 7 brings
     for name in ("dgcc_planner_sat", "scheduled_planner_sat"):
         assert _slice_of(CELLS[name][1]) == 7

@@ -17,9 +17,11 @@ from repro_torch.core import cost_model, metrics  # noqa: E402
 from repro_torch.core import engine, workloads  # noqa: E402
 from repro_torch.core.convert import plan_from_numpy  # noqa: E402
 
+LOCK_TABLE = ("orthrus", "deadlock_free", "twopl_waitdie", "twopl_waitfor",
+              "twopl_dreadlocks", "partitioned_store")
 LOCK_TABLE_CELLS = sorted(
     name for name, (_wl, eng) in CELLS.items()
-    if eng["protocol"] in ("orthrus", "deadlock_free")
+    if eng["protocol"] in LOCK_TABLE
 )
 
 
@@ -36,8 +38,10 @@ def _assert_same_fields(got, want):
 
 
 def test_cells_cover_both_ported_protocols():
-    assert {CELLS[n][1]["protocol"] for n in LOCK_TABLE_CELLS} == {
-        "orthrus", "deadlock_free"}
+    """Every lock-table protocol, the partitioned store's H-Store lane
+    streams (``plan_device``'s ``lane_stream``) included."""
+    assert {CELLS[n][1]["protocol"] for n in LOCK_TABLE_CELLS} == set(
+        LOCK_TABLE)
 
 
 @pytest.mark.parametrize("name", LOCK_TABLE_CELLS)
