@@ -31,8 +31,8 @@ Phases (each raises on failure; the script then exits non-zero):
                turns: each new form against its earlier design, each
                fused launch against the eager chain it replaces (graph
                replay and host-issued), an empty launch (the floor);
-  3. goldens — replay the 13 ported cells of tests/golden/ on the card,
-               bit-exactly;
+  3. goldens — replay all 17 cells of tests/golden/ on the card,
+               bit-exactly (the overload cells' metrics included);
   4. main path, slice 1 — YCSB at the paper's width (10 M records, 64
                hot, 8,192 txns; SIM_CUT's depth) through
                ``run_simulation``: orthrus (16 CC
@@ -99,7 +99,32 @@ Phases (each raises on failure; the script then exits non-zero):
                off; no kernel runs on this path (the reference's grant
                and deadlock stages are plain jnp); step profiles of
                twopl_waitdie, twopl_dreadlocks and deadlock_free in
-               turns, whose difference is the deadlock stage's cost.
+               turns, whose difference is the deadlock stage's cost;
+ 10. main path, slice 7: open arrival — open epoch arrival and the
+               overload layer at the figures' width (YCSB, 10 M records,
+               8,192 txns, 16 hot; the lock-table cells at SIM_CUT's
+               depth) through ``run_simulation``: fig16's
+               past-the-knee planned dgcc (4 CC + 32 exec, window 2, 2
+               planner lanes, a 64-txn epoch every 200 rounds) and
+               fig15's one-planner-lane quecc with fragments (16 CC + 32
+               exec, 256-txn epochs every 200 rounds), each through
+               dep_wavefront and on the plain path (identical
+               fingerprints, dep_wavefront launches = steps, the planner
+               saturated: plan_qdelay > 0); fig17's 40-lane
+               deadlock_free under deadline shedding (epochs every 200
+               rounds, deadline 1,000; rerun with leaping off, identical,
+               every round a step), under a bounded backlog of 64 (the
+               backlog after the last round within it, the host oracle;
+               each queue sample within it plus one epoch), under 4x
+               bursts at interval 800
+               (a whole burst period after warmup), and its closed-loop
+               wait-die with exponential backoff (hot 64: deadlock
+               aborts, backoff rounds issued); orthrus at the golden
+               size under open arrival, deadline shedding, a retry
+               budget of 3 and exp backoff on both paths (identical;
+               lock_grant launches = steps); step profiles of the
+               deadline-shed cell against closed-loop deadlock_free, and
+               of the planned dgcc's two paths, in turns.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -158,7 +183,17 @@ GOLDEN = ROOT / "tests" / "golden"
 GOLDEN_CELLS = ("orthrus", "deadlock_free", "deadlock_free_tpcc_ollp",
                 "dgcc", "quecc", "scheduled", "dgcc_frag", "quecc_frag",
                 "quecc_frag_pipe", "twopl_waitdie", "twopl_waitfor",
-                "twopl_dreadlocks", "partitioned_store")
+                "twopl_dreadlocks", "partitioned_store",
+                "dgcc_planner_sat", "scheduled_planner_sat",
+                "deadlock_free_overload", "deadlock_free_overload_shed")
+# the goldens whose fingerprint pins the metrics layer too
+GOLDEN_METRICS_CELLS = ("deadlock_free_overload",
+                        "deadlock_free_overload_shed")
+# the fingerprint's optional counters: planner lanes and the overload
+# layer, where the run carries them
+FINGERPRINT_OPT_KEYS = ("plan_busy", "plan_qdelay", "epoch_ctr",
+                        "pol_rejected", "pol_shed", "pol_timedout",
+                        "pol_tb_adm", "pol_sacrificed", "pol_backoff_rounds")
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -167,12 +202,13 @@ FP32_OPS_PER_S = 67e12  # non-tensor-core rate; int32 adds and compares
 # The paper's width (benchmarks/figures.py): YCSB at 10 M records, 80 cores
 YCSB_FULL = dict(kind="ycsb", num_txns=8192, num_records=10_000_000,
                  num_hot=64, seed=0)
-SIM_FULL = dict(max_rounds=6000, warmup_rounds=2000, chunk_rounds=2000,
+# Depth cuts for the script's time limit (a slow host issues a kernel in
+# 25 us): the batch cells run 4,000 rounds, the lock-table cells, which
+# step every round or two at 40-80 lanes (5-13 ms a step), 2,000; widths
+# stay
+SIM_FULL = dict(max_rounds=4000, warmup_rounds=1000, chunk_rounds=1000,
                 target_commits=10**9)
-# A depth cut for the script's time limit: the lock-table cells step
-# (nearly) every round at 80 lanes, 5-12 ms a step, so they run 3,000
-# rounds; widths stay
-SIM_CUT = dict(max_rounds=3000, warmup_rounds=1000, chunk_rounds=1000,
+SIM_CUT = dict(max_rounds=2000, warmup_rounds=500, chunk_rounds=500,
                target_commits=10**9)
 ORTHRUS_FULL = dict(protocol="orthrus", n_cc=16, n_exec=64, window=4)
 DF_FULL = dict(protocol="deadlock_free", n_exec=80)
@@ -249,6 +285,42 @@ PSTORE_FULL = dict(protocol="partitioned_store", n_exec=64)
 SLICE7_CELLS = tuple((p, dict(protocol=p, n_exec=80), YCSB_FULL)
                      for p in DL_PROTOCOLS) + (
     ("partitioned_store", PSTORE_FULL, YCSB_FIG6),)
+# slice 7, item 7: open arrival and the overload layer at the figures'
+# width. fig16's base (benchmarks/figures.py:817-823: 64-txn epochs,
+# also fig17's at hot 16, :912) and fig15's (:681-690: 256-txn epochs),
+# both at hot 16
+YCSB_FIG16 = dict(YCSB_FULL, num_hot=16, batch_epoch=64)
+YCSB_FIG15 = dict(YCSB_FULL, num_hot=16, batch_epoch=256)
+OA_BATCH_CELLS = (
+    # fig16's past-the-knee point of its planned dgcc lane
+    ("fig16_h16_i200_dgcc_planned",
+     dict(protocol="dgcc", n_cc=4, n_exec=32, window=2, n_planner_lanes=2,
+          epoch_interval_rounds=200), YCSB_FIG16),
+    # fig15's one-planner-lane quecc with fragments at its fastest rate
+    ("fig15_h16_i200_L1_quecc_frag",
+     dict(protocol="quecc", n_cc=16, n_exec=32, window=2,
+          fragment_exec=True, n_planner_lanes=1, epoch_interval_rounds=200),
+     YCSB_FIG15),
+)
+FIG17_DF = dict(protocol="deadlock_free", n_exec=40)
+FIG17_SHED = dict(FIG17_DF, epoch_interval_rounds=200,
+                  admission_policy="deadline_shed", deadline_rounds=1000)
+FIG17_BB = dict(FIG17_DF, epoch_interval_rounds=200,
+                admission_policy="bounded_backlog", backlog_cap=64)
+FIG17_BURST = dict(FIG17_SHED, epoch_interval_rounds=800,
+                   arrival_pattern="burst", burst_period_epochs=4,
+                   burst_on_epochs=1)
+FIG17_BACKOFF = dict(protocol="twopl_waitdie", n_exec=40,
+                     backoff_mode="exp", backoff_max_rounds=4096)
+# the burst cell's depth: one whole burst period (4 epochs x 800
+# rounds) after its warmup
+SIM_BURST = dict(max_rounds=3600, warmup_rounds=400, chunk_rounds=1200,
+                 target_commits=10**9)
+# B1 under open arrival: the orthrus golden's workload and lanes (no
+# figure runs orthrus open-loop), shedding, a retry budget, exp backoff
+ORTHRUS_OA = dict(epoch_interval_rounds=150,
+                  admission_policy="deadline_shed", deadline_rounds=400,
+                  retry_budget=3, backoff_mode="exp", backoff_max_rounds=256)
 BATCH_CELLS = (("dgcc", DGCC_FULL, YCSB_FULL),
                ("quecc", QUECC_FULL, YCSB_FULL),
                ("quecc_frag_pipe", QUECC_FRAG_PIPE_FULL, YCSB_FIG14),
@@ -271,6 +343,7 @@ def fingerprint(res, include_metrics: bool = False) -> dict:
         rounds_total=res.raw["rounds_total"],
         steps_executed=res.raw["steps_executed"],
     )
+    fp.update({k: res.raw[k] for k in FINGERPRINT_OPT_KEYS if k in res.raw})
     if include_metrics and res.metrics is not None:
         m = res.metrics
         fp["lat_hist"] = [int(x) for x in m.lat_hist]
@@ -2018,7 +2091,7 @@ def replay_goldens(device) -> None:
         t0 = time.time()
         res = run_simulation(cfg, make_workload(WorkloadConfig(**g["workload"])),
                              device=device)
-        got = fingerprint(res)
+        got = fingerprint(res, include_metrics=name in GOLDEN_METRICS_CELLS)
         if got != g["trace"]:
             diff = {k: (got[k], g["trace"].get(k)) for k in got
                     if got[k] != g["trace"].get(k)}
@@ -2111,6 +2184,170 @@ def main_path_slice7(device) -> None:
         "deadlock_free": DF_FULL}, wl, device, warm=50, timed=50)
 
 
+def report_open(name, res) -> None:
+    """One open-arrival run's fingerprint, metrics digest and goodput
+    split."""
+    full = json.dumps(fingerprint(res, True), sort_keys=True)
+    m = res.metrics
+    print(f"{name}: fingerprint {json.dumps(fingerprint(res))}, with the "
+          f"metrics sha256 {hashlib.sha256(full.encode()).hexdigest()[:16]}"
+          f"; offered {m.offered}, admitted {m.admitted}, committed "
+          f"{m.committed}, rejected {m.rejected}, shed {m.shed}, timedout "
+          f"{m.timedout}, sacrificed {m.sacrificed}, p50/p99 rounds "
+          f"{m.p50}/{m.p99}, q_depth max {int(max(m.q_depth))}")
+
+
+def backlog_samples(res, eng_kw, sim=SIM_FULL) -> list:
+    """The run's queue-depth samples at the grid points it reached (the
+    grid covers (0, max_rounds]; points past the last round stay 0)."""
+    from repro_torch.core.engine import EngineConfig, qgrid_interval
+
+    iv = qgrid_interval(EngineConfig(**eng_kw, **sim))
+    n = res.raw["rounds_total"] // iv
+    return [int(x) for x in res.metrics.q_depth[:n]]
+
+
+def both_paths(name, eng_kw, workload, device, ops, sim=SIM_FULL):
+    """One cell on the kernel path and the plain path: identical
+    fingerprints and ``raw`` counters (metrics included), ``ops``'s
+    launches = steps on the kernel path and none on the plain one.
+    Returns the kernel path's result and its launches."""
+    runs, launches = {}, 0
+    for impl in ("auto", "jnp"):
+        before = ops.launches
+        res = run_cell(f"{name} kernel_impl={impl}", eng_kw, workload,
+                       device, sim=sim, kernel_impl=impl)
+        n = ops.launches - before
+        steps = res.raw["steps_executed"]
+        extra = {k: res.raw[k] for k in ("pipe_adm", "pipe_commits")
+                 if k in res.raw}
+        print(f"{name} kernel_impl={impl}: {ops.__name__.split('.')[-2]} "
+              f"launches {n}, steps_executed {steps} {extra}")
+        if n != (steps if impl == "auto" else 0) or steps <= 0:
+            raise AssertionError(f"{name} kernel_impl={impl}: {n} launches "
+                                 f"in {steps} steps")
+        launches += n
+        runs[impl] = res
+    skip = {"wall_s_group"}
+    raw = [{k: v for k, v in runs[i].raw.items() if k not in skip}
+           for i in ("auto", "jnp")]
+    if fingerprint(runs["auto"], True) != fingerprint(runs["jnp"], True) \
+            or raw[0] != raw[1] \
+            or runs["auto"].metrics.summary_row() != (
+                runs["jnp"].metrics.summary_row()):
+        raise AssertionError(f"kernel and plain {name} runs diverged")
+    print(f"{name}: kernel and plain fingerprints identical (metrics and "
+          f"counters incl.)")
+    return runs["auto"], launches
+
+
+def main_path_slice7_open(device) -> dict:
+    """Phase 10: open epoch arrival and the overload layer at the
+    figures' width through ``run_simulation``, B2 and B1 on its path.
+    Returns the lock_grant and dep_wavefront launches of the path."""
+    from repro_torch.core import engine
+    from repro_torch.core.workloads import WorkloadConfig, make_workload
+    from repro_torch.kernels.dep_wavefront import ops as dw_ops
+    from repro_torch.kernels.lock_grant import ops as lg_ops
+
+    wl16 = make_full_workload(YCSB_FIG16)
+    batch_wl = {"fig16_h16_i200_dgcc_planned": wl16,
+                "fig15_h16_i200_L1_quecc_frag": make_full_workload(
+                    YCSB_FIG15)}
+    wl64 = make_full_workload(YCSB_FULL)
+    golden = json.loads((GOLDEN / "orthrus.json").read_text())
+    wl_small = make_workload(WorkloadConfig(**golden["workload"]))
+    reset_launches()
+    batch = {}
+    for name, eng_kw, _wl_kw in OA_BATCH_CELLS:
+        res, _n = both_paths(name, eng_kw, batch_wl[name], device, dw_ops)
+        report_open(name, res)
+        q = backlog_samples(res, eng_kw)
+        print(f"{name}: plan_qdelay {res.raw['plan_qdelay']}, plan_busy "
+              f"{res.raw['plan_busy']}, epoch_ctr {res.raw['epoch_ctr']}, "
+              f"backlog mid-run {q[len(q) // 2]}, last {q[-1]}")
+        batch[name] = (res, q)
+    # fig15's one planner lane takes about 1,570 rounds a 256-txn plan
+    # against an epoch every 200 rounds: the planner saturates. fig16's
+    # two lanes take 184 rounds a 64-txn plan against an epoch every 200
+    # (cost_model.planner_lane_schedule gives no queueing at all), so
+    # its exec lanes bind instead: past the knee the backlog grows
+    if batch["fig15_h16_i200_L1_quecc_frag"][0].raw["plan_qdelay"] <= 0:
+        raise AssertionError("fig15_h16_i200_L1_quecc_frag: the planner "
+                             "did not saturate")
+    q16 = batch["fig16_h16_i200_dgcc_planned"][1]
+    if not q16[-1] > q16[len(q16) // 2] > 0:
+        raise AssertionError("fig16_h16_i200_dgcc_planned: the backlog "
+                             "did not grow past the knee")
+
+    shed = run_cell("fig17_i200_deadline_shed", FIG17_SHED, wl16, device,
+                    sim=SIM_CUT)
+    report_open("fig17_i200_deadline_shed", shed)
+    if shed.raw["pol_shed"] <= 0:
+        raise AssertionError("fig17_i200_deadline_shed shed nothing")
+    dense = run_cell("fig17_i200_deadline_shed event_leap=False",
+                     FIG17_SHED, wl16, device, sim=SIM_CUT,
+                     event_leap=False)
+    leap_fp, dense_fp = fingerprint(shed, True), fingerprint(dense, True)
+    leap_steps = leap_fp.pop("steps_executed")
+    dense_steps = dense_fp.pop("steps_executed")
+    if dense_fp != leap_fp or dense_steps != dense_fp["rounds_total"] \
+            or dense.metrics.summary_row() != shed.metrics.summary_row():
+        raise AssertionError("fig17_i200_deadline_shed: the leaping and "
+                             "dense runs diverged")
+    print(f"fig17_i200_deadline_shed: leaping and dense fingerprints "
+          f"identical (metrics incl.; steps {leap_steps} / {dense_steps})")
+    bb = run_cell("fig17_i200_bounded_backlog", FIG17_BB, wl16, device,
+                  sim=SIM_CUT)
+    report_open("fig17_i200_bounded_backlog", bb)
+    # after the last executed round the backlog (the host oracle's
+    # arrivals less the consumed txns) is within the cap; a queue sample
+    # may exceed it by one epoch, which lands on its grid point before
+    # that round's drop stage runs (tests/test_overload.py's bound)
+    cap = FIG17_BB["backlog_cap"]
+    cfg_bb = engine.EngineConfig(**FIG17_BB, **SIM_CUT)
+    backlog = engine.offered_by_round(
+        cfg_bb, engine.make_plan(cfg_bb, wl16),
+        bb.raw["rounds_total"] - 1) - bb.raw["next_txn"]
+    q_max = int(max(bb.metrics.q_depth))
+    print(f"fig17_i200_bounded_backlog: backlog after the last round "
+          f"{backlog} (cap {cap}), largest queue sample {q_max}")
+    if bb.raw["pol_rejected"] <= 0 or not 0 <= backlog <= cap \
+            or q_max > cap + YCSB_FIG16["batch_epoch"]:
+        raise AssertionError("fig17_i200_bounded_backlog: no rejection, or "
+                             "a backlog past the cap")
+    burst = run_cell("fig17_burst_i800_deadline_shed", FIG17_BURST, wl16,
+                     device, sim=SIM_BURST)
+    report_open("fig17_burst_i800_deadline_shed", burst)
+    backoff = run_cell("fig17_backoff_h64_exp", FIG17_BACKOFF, wl64, device,
+                       sim=SIM_CUT, deadlock_aborts=True)
+    report_open("fig17_backoff_h64_exp", backoff)
+    print(f"fig17_backoff_h64_exp: deadlock aborts "
+          f"{backoff.aborts_deadlock}, pol_backoff_rounds "
+          f"{backoff.raw['pol_backoff_rounds']}")
+    if backoff.raw["pol_backoff_rounds"] <= 0:
+        raise AssertionError("fig17_backoff_h64_exp issued no backoff")
+
+    orthrus = dict(golden["engine"], **ORTHRUS_OA)
+    res, _n = both_paths("orthrus golden size, open arrival", orthrus,
+                         wl_small, device, lg_ops, sim=golden["sim"])
+    report_open("orthrus golden size, open arrival", res)
+    counts = {name: ops.launches for name, ops in kernel_ops().items()}
+    print(f"slice 7 open-arrival path: kernel launches {counts}")
+    if any(v for k, v in counts.items()
+           if k not in ("lock_grant", "dep_wavefront")):
+        raise AssertionError("a kernel off this path launched")
+    profile_steps("fig17", {
+        "fig17_i200_deadline_shed": FIG17_SHED,
+        "deadlock_free closed loop": FIG17_DF}, wl16, device, warm=50,
+        timed=50)
+    dgcc = OA_BATCH_CELLS[0][1]
+    profile_steps("fig16_h16_i200_dgcc_planned", {
+        "kernel path": dgcc, "plain path": dict(dgcc, kernel_impl="jnp")},
+        wl16, device, warm=100, timed=50, watch="dep_wavefront")
+    return counts
+
+
 def kernel_ops() -> dict:
     """The five kernels' ops modules by name; each counts its launches."""
     from repro_torch.kernels.dep_wavefront import ops as dw_ops
@@ -2136,22 +2373,11 @@ def main_path_slice1(device) -> int:
 
     wl = make_full_workload(YCSB_FULL)
     reset_launches()
-    res_k = run_cell("orthrus kernel_impl=auto", ORTHRUS_FULL, wl, device,
-                     sim=SIM_CUT)
-    launches = ops.launches
-    print(f"orthrus kernel_impl=auto: lock_grant launches {launches}, "
-          f"steps_executed {res_k.raw['steps_executed']}")
-    if launches <= 0 or launches != res_k.raw["steps_executed"]:
-        raise AssertionError("the ORTHRUS run did not launch lock_grant "
-                             "once per step")
-    res_j = run_cell("orthrus kernel_impl=jnp (plain)", ORTHRUS_FULL, wl,
-                     device, sim=SIM_CUT, kernel_impl="jnp")
+    _res, launches = both_paths("orthrus", ORTHRUS_FULL, wl, device, ops,
+                                sim=SIM_CUT)
     run_cell("deadlock_free", DF_FULL, wl, device, sim=SIM_CUT)
     if ops.launches != launches:
-        raise AssertionError("a plain-path run launched lock_grant")
-    if fingerprint(res_k, True) != fingerprint(res_j, True):
-        raise AssertionError("kernel and plain ORTHRUS runs diverged")
-    print("orthrus: kernel and plain fingerprints identical (metrics incl.)")
+        raise AssertionError("deadlock_free launched lock_grant")
     profile_steps("orthrus", {
         "kernel path": ORTHRUS_FULL,
         "plain path": dict(ORTHRUS_FULL, kernel_impl="jnp")}, wl, device,
@@ -2168,30 +2394,8 @@ def main_path_slice2(device) -> int:
     workloads = {name: make_full_workload(wl_kw)
                  for name, _eng_kw, wl_kw in BATCH_CELLS}
     reset_launches()
-    total = 0
-    results = {}
-    for name, eng_kw, _wl_kw in BATCH_CELLS:
-        for impl in ("auto", "jnp"):
-            before = ops.launches
-            res = run_cell(f"{name} kernel_impl={impl}", eng_kw,
-                           workloads[name], device, kernel_impl=impl)
-            n = ops.launches - before
-            steps = res.raw["steps_executed"]
-            extra = {k: res.raw[k] for k in ("pipe_adm", "pipe_commits")
-                     if k in res.raw}
-            print(f"{name} kernel_impl={impl}: dep_wavefront launches {n}, "
-                  f"steps_executed {steps} {extra}")
-            if n != (steps if impl == "auto" else 0) or steps <= 0:
-                raise AssertionError(f"{name} kernel_impl={impl}: {n} "
-                                     f"dep_wavefront launches in {steps} "
-                                     f"steps")
-            total += n
-            results[impl] = res
-        if fingerprint(results["auto"], True) != fingerprint(
-                results["jnp"], True):
-            raise AssertionError(f"kernel and plain {name} runs diverged")
-        print(f"{name}: kernel and plain fingerprints identical "
-              f"(metrics incl.)")
+    total = sum(both_paths(name, eng_kw, workloads[name], device, ops)[1]
+                for name, eng_kw, _wl_kw in BATCH_CELLS)
     if total != ops.launches:
         raise AssertionError("dep_wavefront launched outside the runs")
     profile_steps("dgcc", {
@@ -2865,6 +3069,10 @@ def main() -> int:
     rows[4]["launches"] = slice5["moe_dispatch"]
     rows[2]["launches"] += slice5["flash_attention"]
     phase("main path, slice 7", main_path_slice7, device)
+    open_counts = phase("main path, slice 7: open arrival",
+                        main_path_slice7_open, device)
+    rows[0]["launches"] += open_counts["lock_grant"]
+    rows[1]["launches"] += open_counts["dep_wavefront"]
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -6,8 +6,10 @@ cycles); in each round every lane interacts with the lock table at most
 once. See the reference module for the protocol families and the cost
 model; this module keeps its names, row constants and stage numbering.
 
-Ported so far, closed loop, ``release_path`` "csr" or "dense", one
-round per dispatch, with event leaping on or off:
+Ported so far, ``release_path`` "csr" or "dense", one round per
+dispatch, with event leaping on or off, closed loop or open epoch
+arrival (uniform, burst or diurnal) under every admission policy, retry
+budget and backoff mode of the overload layer:
 
 * ``make_step``: ``orthrus`` (CC lanes own key partitions, exec lanes
   multiplex a window of transactions, P1 + P2), ``deadlock_free``
@@ -41,7 +43,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import planner as planner_lib
-from repro_torch.core.cost_model import DEFAULT_COST_MODEL, CostModel
+from repro_torch.core.cost_model import (
+    BACKOFF_SHIFT_CAP,
+    DEFAULT_COST_MODEL,
+    CostModel,
+)
 from repro_torch.core.lockgrant import (
     I32_MAX,
     I32_MIN,
@@ -348,16 +354,6 @@ class EngineConfig:
 
 def check_ported(cfg: EngineConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.epoch_interval_rounds > 0:
-        raise NotImplementedError(
-            "open epoch arrival (epoch_interval_rounds > 0) and the "
-            "overload layer are not ported yet (slice 7)"
-        )
-    if cfg.retry_budget > 0 or cfg.backoff_mode != "fixed":
-        raise NotImplementedError(
-            "retry budgets and exponential backoff (the overload layer) "
-            "are not ported yet (slice 7)"
-        )
     if cfg.dispatch_rounds > 1:
         raise NotImplementedError(
             "rounds_per_dispatch > 1 is not ported yet (slice 7)"
@@ -463,10 +459,8 @@ def _policy_scalars(cfg: EngineConfig) -> dict:
 
 def plan_device(cfg: EngineConfig, plan: planner_lib.Plan) -> dict:
     """The plan arrays the step reads, as numpy: the entries of
-    ``repro.core.engine.plan_device`` (for the lock-table engine, open
-    arrival and policy scalars included; the batch engine's open-arrival
-    and policy keys come with the steps that read them, in slice 7).
-    ``convert.plan_from_numpy`` moves them to a device.
+    ``repro.core.engine.plan_device``, open arrival and policy scalars
+    included. ``convert.plan_from_numpy`` moves them to a device.
     """
     if cfg.is_batch_planned:
         return _batch_plan_device(cfg, plan)
@@ -563,8 +557,73 @@ def _batch_plan_device(cfg: EngineConfig, plan: planner_lib.Plan) -> dict:
         p["plan_work"] = _planner_work_rounds(cfg, plan)
     if cfg.n_planner_lanes > 0 or cfg.epoch_interval_rounds > 0:
         p["epoch_interval"] = np.asarray(cfg.epoch_interval_rounds, np.int32)
+    if cfg.epoch_interval_rounds > 0:
+        # cumulative batch sizes in admission units (fragments under
+        # fragment_exec): closed-form arrived-unit counts at any round
+        usz = sched.batch_fsize if cfg.fragment_exec else sched.batch_size
+        p["cum_usize"] = np.concatenate([[0], np.cumsum(usz)]).astype(
+            np.int32)
+    if cfg.arrival_pattern != "uniform":
+        sched_arr, period, sp = _epoch_schedule_arrays(cfg)
+        p["ep_sched"] = sched_arr.astype(np.int32)
+        p["sched_period"] = np.asarray(period, np.int32)
+        p["sched_epochs"] = np.asarray(sp, np.int32)
+    p.update(_policy_scalars(cfg))
+    if cfg.admission_policy in ("bounded_backlog", "token_bucket"):
+        # the batch engine sheds / gates whole epochs: caps given in
+        # transactions round down to epochs (at least one)
+        b = max(int(plan.epoch_txns), 1)
+        if cfg.admission_policy == "bounded_backlog":
+            p["pol_cap_epochs"] = np.asarray(
+                max(cfg.backlog_cap // b, 1), np.int32)
+        else:
+            p["pol_tb_burst_e"] = np.asarray(
+                max(cfg.token_burst // b, 1), np.int32)
     p["qgrid_iv"] = np.asarray(qgrid_interval(cfg), np.int32)
     return p
+
+
+def offered_by_round(
+    cfg: EngineConfig, plan: planner_lib.Plan, r: int
+) -> int:
+    """How many schedulable units (txns; fragments under
+    ``fragment_exec``) the open-arrival schedule has offered by round
+    ``r`` inclusive, in exact int64 arithmetic: the host mirror of the
+    steps' arrived-by closed forms and the goodput denominator of
+    ``Metrics``. 0 for closed-loop configs."""
+    if cfg.epoch_interval_rounds <= 0 or r < 0:
+        return 0
+    iv = int(cfg.epoch_interval_rounds)
+    if cfg.is_batch_planned:
+        sched = plan.sched
+        nb = sched.num_batches
+        usz = sched.batch_fsize if cfg.fragment_exec else sched.batch_size
+        cum = np.concatenate([[0], np.cumsum(np.asarray(usz, np.int64))])
+        nu = int(cum[-1])
+        if cfg.arrival_pattern != "uniform":
+            ep_sched, period, sp = _epoch_schedule_arrays(cfg)
+            n_arr = (r // period) * sp + int(
+                np.searchsorted(ep_sched, r % period, side="right")
+            )
+        else:
+            n_arr = r // iv + 1
+        return int((n_arr // nb) * nu + cum[n_arr % nb])
+    n = int(plan.keys.shape[0])
+    b = max(int(plan.epoch_txns), 1)
+    n_ep = -(-n // b)
+    if cfg.arrival_pattern != "uniform":
+        ep_sched, period, sp = _epoch_schedule_arrays(cfg)
+        reps = -(-n_ep // sp)
+        ep_arr = (
+            np.tile(ep_sched, reps)
+            + np.repeat(np.arange(reps, dtype=np.int64) * period, sp)
+        )[:n_ep]
+        cyc = reps * period
+        in_cyc = int(np.searchsorted(ep_arr, r % cyc, side="right")) * b
+    else:
+        cyc = n_ep * iv
+        in_cyc = (r % cyc // iv + 1) * b
+    return int((r // cyc) * n + min(in_cyc, n))
 
 
 def rebase_enq(s: dict) -> dict:
@@ -636,7 +695,23 @@ def _state0(cfg: EngineConfig, num_records: int, T: int, K: int,
         # record q), kept at grant and release; the deadlock stage
         # gathers waiters' digests from it
         s["rdr"] = z(R + 1, (T + 31) // 32)
+    s.update(_policy_counters(cfg, dev))
     return s
+
+
+def _policy_counters(cfg: EngineConfig, device) -> dict:
+    """The overload layer's carried counters, keyed on the same statics
+    as the step builders (``sweep._OPT_SCALARS`` reports them)."""
+    names = []
+    if cfg.admission_policy != "none":
+        # bounded_backlog drops, deadline_shed queue drops, in-flight
+        # deadline hits, token-bucket admissions
+        names += ["pol_rejected", "pol_shed", "pol_timedout", "pol_tb_adm"]
+    if cfg.retry_budget > 0:
+        names.append("pol_sacrificed")  # retry budget exhausted
+    if cfg.backoff_mode == "exp":
+        names.append("pol_backoff_rounds")  # total backoff issued
+    return {k: torch.zeros((), dtype=I32, device=device) for k in names}
 
 
 def grant_chain(keys, modes, pend2d, rel_entries, enq, wh_r, rc_r, ent_slot,
@@ -710,6 +785,14 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     cap_keys = cm.cc_keys_per_round
     orthrus = cfg.is_orthrus
     has_lane_stream = meta.lane_cols > 0
+    # open epoch arrival: admission also waits for the txn's epoch. The
+    # overload layer's kinds are statics; their parameters ride the
+    # plan dict as scalars (pol_*)
+    open_arrival = cfg.epoch_interval_rounds > 0
+    policy = cfg.admission_policy
+    exp_backoff = cfg.backoff_mode == "exp"
+    has_budget = cfg.retry_budget > 0
+    bursty = cfg.arrival_pattern != "uniform"
 
     def const(v):
         return torch.tensor(v, dtype=I32, device=dev)
@@ -731,6 +814,7 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     c_wait, c_msg, c_idle = const(CAT_WAIT), const(CAT_MSG), const(CAT_IDLE)
     c_exec = const(CAT_EXEC)
     c_empty, c_backoff = const(EMPTY), const(BACKOFF)
+    c_n, c_base = const(N), const(cm.abort_backoff_rounds)
 
     lock_op_cycles = (
         cm.partition_lock_cycles
@@ -821,6 +905,48 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
 
         free = busy_until <= r
 
+        if open_arrival:
+            # closed forms over the arrival schedule (saturating: ids
+            # and rounds past the int32-exact range read as "never")
+            def arr_of(g):
+                # arrival round of global txn id g (the workload wraps
+                # modulo N every arrive_cycle rounds)
+                return _at(p["arrive_round"], g % N) + _sat_mul(
+                    g // N, p["arrive_cycle"])
+
+            def arrived_by(x):
+                # txns with arrival round <= x, the exact inverse of
+                # arr_of: arrived_by(x) > g iff x >= arr_of(g)
+                cyc = p["arrive_cycle"]
+                xp = torch.clamp(x, min=0)
+                if bursty:
+                    in_cyc = _searchsorted_right(
+                        p["ep_arrive"], xp % cyc) * p["epoch_txns"]
+                else:
+                    in_cyc = (
+                        xp % cyc // p["epoch_interval"] + 1
+                    ) * p["epoch_txns"]
+                n_in = torch.clamp(in_cyc, max=N)
+                return torch.where(x < 0, c_zero,
+                                   _sat_mul(xp // cyc, c_n) + n_in)
+
+        # --------------------------------------- 1a. admission-control drops
+        # Queue-side drops advance next_txn before slot ranking, so a
+        # dropped txn is never loaded. Drops happen at executed rounds
+        # only; the stage-12 leap candidates keep every drop round one.
+        if policy == "bounded_backlog":
+            # drop the oldest waiters beyond the backlog cap
+            drop = torch.clamp(
+                arrived_by(r) - p["pol_cap"] - s["next_txn"], min=0)
+            s["pol_rejected"] = s["pol_rejected"] + drop
+            s["next_txn"] = s["next_txn"] + drop
+        elif policy == "deadline_shed":
+            # drop waiters whose queueing delay exceeds the deadline
+            drop = torch.clamp(
+                arrived_by(r - p["pol_deadline"] - 1) - s["next_txn"], min=0)
+            s["pol_shed"] = s["pol_shed"] + drop
+            s["next_txn"] = s["next_txn"] + drop
+
         # ------------------------------------------ 1+2. admission & retry
         empty = phase == EMPTY
         if has_lane_stream:
@@ -833,7 +959,20 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
         else:
             rank = torch.cumsum(empty, 0, dtype=I32) - 1
             new_tid = s["next_txn"] + rank
-            adm = empty
+            if open_arrival:
+                # arrival is monotone in the global id, so the admitted
+                # set is a prefix of the ranked empty slots
+                arr_t = arr_of(new_tid)
+                adm = empty & (arr_t <= r)
+                if policy == "token_bucket":
+                    # backpressure: txn g also waits for token g (the
+                    # bucket starts with token_burst and refills one
+                    # every token_interval_rounds)
+                    adm = adm & (
+                        new_tid < p["pol_tb_burst"] + r // p["pol_tb_iv"])
+                    s["pol_tb_adm"] = s["pol_tb_adm"] + adm.sum(dtype=I32)
+            else:
+                adm = empty
             new_widx = new_tid % N
         s["next_txn"] = s["next_txn"] + adm.sum(dtype=I32)
         retry = (phase == BACKOFF) & free
@@ -841,7 +980,9 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
         widx = torch.where(adm, new_widx, widx)
         tid = torch.where(adm, new_tid, tid)
         ts = torch.where(adm, new_tid, ts)
-        arrive = torch.where(adm, r, arrive)
+        # arrival stamp: the epoch's arrival under open arrival (latency
+        # includes queueing), else the admission round; retries keep it
+        arrive = torch.where(adm, arr_t if open_arrival else r, arrive)
         attempt = torch.where(
             adm, c_zero, torch.where(retry, attempt + 1, attempt)
         )
@@ -1384,14 +1525,44 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
         s["lat_hist"] = s["lat_hist"].index_add(
             0, torch.where(com, lat_b, 0), com.to(I32)
         )
-        back = rel_done_all & ~committing
+        aborting = rel_done_all & ~committing
+        if exp_backoff:
+            # bounded exponential backoff, base << attempt shift-capped
+            # then clamped (cost_model.exp_backoff_rounds)
+            bo = torch.minimum(
+                c_base << torch.clamp(attempt, max=BACKOFF_SHIFT_CAP),
+                p["pol_bo_max"],
+            )
+        else:
+            bo = cm.abort_backoff_rounds
+        leave, drop_tid, back = committing, com, aborting
+        if has_budget or policy == "deadline_shed":
+            # give up instead of backing off when the retry budget is
+            # spent (pol_sacrificed, checked first) or, under
+            # deadline_shed, when the end-to-end latency already blew
+            # the deadline (pol_timedout)
+            give_up = torch.zeros_like(aborting)
+            if has_budget:
+                sac = aborting & (attempt + 1 >= p["pol_retry_budget"])
+                s["pol_sacrificed"] = s["pol_sacrificed"] + sac.sum(
+                    dtype=I32)
+                give_up = give_up | sac
+            if policy == "deadline_shed":
+                timed = (aborting & ~give_up
+                         & (r - arrive > p["pol_deadline"]))
+                s["pol_timedout"] = s["pol_timedout"] + timed.sum(dtype=I32)
+                give_up = give_up | timed
+            leave = committing | give_up
+            drop_tid = com | give_up
+            back = aborting & ~give_up
+        if exp_backoff:
+            s["pol_backoff_rounds"] = s["pol_backoff_rounds"] + torch.where(
+                back, bo, c_zero).sum(dtype=I32)
         phase = torch.where(
-            rel_done_all, torch.where(committing, c_empty, c_backoff), phase
+            rel_done_all, torch.where(leave, c_empty, c_backoff), phase
         )
-        tid = torch.where(com, const(-1), tid)
-        busy_until = torch.where(
-            back, r + cm.abort_backoff_rounds, busy_until
-        )
+        tid = torch.where(drop_tid, const(-1), tid)
+        busy_until = torch.where(back, r + bo, busy_until)
         s["want"] = s["want"] & ~rel_done_all[:, None]
 
         # ------------------------------------------------ 11. lane accounting
@@ -1444,6 +1615,29 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
             if has_lane_stream:
                 # a lane with no homed txn left to pull stays idle
                 can_adm = lane_next(p["lane_stream"], lane_ctr) >= 0
+            elif open_arrival:
+                # the earliest admissible txn is global id next_txn; an
+                # empty slot acts once it has arrived, and its arrival
+                # round is the wake-up until then
+                g0 = s["next_txn"]
+                arr0 = arr_of(g0)
+                if policy == "token_bucket":
+                    # ... and once token g0 is granted
+                    # (cost_model.token_ready_round)
+                    arr0 = torch.maximum(arr0, _sat_mul(
+                        torch.clamp(g0 - p["pol_tb_burst"] + 1, min=0),
+                        p["pol_tb_iv"],
+                    ))
+                can_adm = arr0 <= r + 1
+                cand = torch.minimum(cand, torch.where(
+                    (phase == EMPTY).any(), arr0, _IMAX))
+                # the next policy drop round is a wake-up of its own,
+                # closed-form in next_txn, so stage 1a stays dense-exact
+                if policy == "bounded_backlog":
+                    cand = torch.minimum(cand, arr_of(g0 + p["pol_cap"]))
+                elif policy == "deadline_shed":
+                    cand = torch.minimum(
+                        cand, arr0 + p["pol_deadline"] + 1)
             else:
                 can_adm = True
             act_next = (
@@ -1487,6 +1681,13 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
         s["q_inflight"] = torch.where(
             qm, (tid >= 0).sum(dtype=I32), s["q_inflight"]
         )
+        if open_arrival:
+            # backlog at grid point x: txns arrived by x minus the
+            # admission cursor (policy drops advance the cursor)
+            s["q_depth"] = torch.where(
+                qm, torch.clamp(arrived_by(qgrid) - s["next_txn"], min=0),
+                s["q_depth"],
+            )
         s["slots"] = torch.stack(
             [tid, widx, lane_ctr, ts, phase, committing.to(I32),
              busy_until, busy_kind, kptr, attempt, ccptr, msg_arrive,
@@ -1610,7 +1811,9 @@ def _batch_state0(cfg: EngineConfig, plan: planner_lib.Plan, T: int,
         s["pipe_adm"] = z()
         s["pipe_commits"] = z()
     if cfg.n_planner_lanes > 0 or cfg.epoch_interval_rounds > 0:
-        s["epoch_ctr"] = z()
+        s["epoch_ctr"] = z()  # global batch (epoch) index
+    # the batch engine sheds whole epochs, so pol_timedout never moves
+    s.update(_policy_counters(cfg, dev))
     if cfg.n_planner_lanes > 0:
         # batch 0 arrives at round 0 on a free lane 0, so its plan
         # completes after its own work span
@@ -1627,9 +1830,17 @@ def _batch_state0(cfg: EngineConfig, plan: planner_lib.Plan, T: int,
 
 
 def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """``x[i]`` for a 0-d index tensor, as a 0-d tensor. Indexing with a
-    0-d tensor itself reads the index on the host (a device sync)."""
-    return x.index_select(0, i.reshape(1)).reshape(())
+    """``x[i]`` for an int index tensor of any shape, 0-d included, in
+    the index's shape. Indexing with a 0-d tensor itself reads the index
+    on the host (a device sync)."""
+    return x.index_select(0, i.reshape(-1)).reshape(i.shape)
+
+
+def _searchsorted_right(seq: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``jnp.searchsorted(seq, v, side="right")`` as int32, for int32 ``v``
+    of any shape and a 1-D int32 ``seq``."""
+    return torch.searchsorted(seq, v.reshape(-1), right=True).to(I32).reshape(
+        v.shape)
 
 
 def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
@@ -1665,6 +1876,12 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
     pipe = cfg.inter_batch_pipeline and NB > 1
     L = cfg.n_planner_lanes
     planner_model = L > 0
+    open_arrival = cfg.epoch_interval_rounds > 0
+    # the overload layer reduces to epoch-granular admission control
+    # here (no abort path): bounded_backlog and deadline_shed skip stale
+    # whole epochs at rollover, token_bucket delays an epoch's plan start
+    policy = cfg.admission_policy
+    bursty = cfg.arrival_pattern != "uniform"
 
     slot_ids = torch.arange(T, dtype=I32, device=dev)
     lane_idx = (slot_ids // W).long()
@@ -1674,6 +1891,8 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
     qgrid_pos = torch.arange(QDEPTH_SAMPLES, dtype=I32, device=dev) + 1
     lane_ones = torch.ones(cfg.n_exec, dtype=I32, device=dev)
     neg_ones = torch.full((T,), -1, dtype=I32, device=dev)
+    c_zero = torch.zeros((), dtype=I32, device=dev)
+    c_nu = torch.tensor(NU, dtype=I32, device=dev)
     shared_index = not cfg.split_index
     exec_cycles_per_op = cm.exec_op_cycles + (
         cm.shared_index_penalty_cycles if shared_index else 0
@@ -1714,8 +1933,37 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
         batch_of = p["batch_of"]  # [N] txn-level (commit barrier)
         bsize = p["batch_size"]
         done = s["done"]  # [NU + 1], updated in place
-        if planner_model:
+        if planner_model or open_arrival:
             interval = p["epoch_interval"]
+        if open_arrival:
+            # closed forms over the epoch-arrival schedule (saturating):
+            # epoch g arrives whole at ep_arrival(g); epochs_arrived_by
+            # is its exact inverse
+            if bursty:
+                def ep_arrival(g):
+                    return _sat_mul(
+                        g // p["sched_epochs"], p["sched_period"]
+                    ) + _at(p["ep_sched"], g % p["sched_epochs"])
+
+                def epochs_arrived_by(x):
+                    xp = torch.clamp(x, min=0)
+                    cnt = _sat_mul(
+                        xp // p["sched_period"], p["sched_epochs"]
+                    ) + _searchsorted_right(
+                        p["ep_sched"], xp % p["sched_period"])
+                    return torch.where(x < 0, c_zero, cnt)
+            else:
+                def ep_arrival(g):
+                    return _sat_mul(g, interval)
+
+                def epochs_arrived_by(x):
+                    return torch.where(
+                        x < 0, c_zero, torch.clamp(x, min=0) // interval + 1)
+
+            def units_before(g):
+                # schedulable units in global epochs [0, g) (fragments
+                # in fragment mode; the workload wraps modulo NB)
+                return _sat_mul(g // NB, c_nu) + _at(p["cum_usize"], g % NB)
 
         sl = s["slots"]
         tid = sl[BC_TID]
@@ -1734,7 +1982,28 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
         # last one (pipelined planners), or, under the planner-lane
         # model, after lane g % L has planned it end to end.
         adv = s["batch_left"] == 0
-        new_b = torch.where(adv, (s["cur_batch"] + 1) % NB, s["cur_batch"])
+        if policy in ("bounded_backlog", "deadline_shed"):
+            # epoch-granular shedding at rollover (an executed round in
+            # dense and leaped runs alike): skip past the epochs beyond
+            # the backlog cap, or those whose queueing delay already
+            # exceeds the deadline. Dropped units advance next_txn, so
+            # the backlog samples see them leave the queue.
+            g_next = s["epoch_ctr"] + 1
+            if policy == "bounded_backlog":
+                floor_g = epochs_arrived_by(r) - p["pol_cap_epochs"]
+            else:
+                floor_g = epochs_arrived_by(r - p["pol_deadline"] - 1)
+            skip = torch.where(adv, torch.clamp(floor_g - g_next, 0, _SAT),
+                               c_zero)
+            dropped = units_before(g_next + skip) - units_before(g_next)
+            ckey = ("pol_rejected" if policy == "bounded_backlog"
+                    else "pol_shed")
+            s[ckey] = s[ckey] + dropped
+            s["next_txn"] = s["next_txn"] + dropped
+        else:
+            skip = 0
+        new_b = torch.where(adv, (s["cur_batch"] + 1 + skip) % NB,
+                            s["cur_batch"])
         # stale flags (the workload wraps modulo NB) are cleared one
         # batch ahead of admission
         clr_b = (new_b + 1) % NB if pipe else new_b
@@ -1756,9 +2025,21 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
             s["bpos"] = torch.where(adv, _at(ustart, new_b), s["bpos"])
             s["batch_left"] = torch.where(adv, _at(bsize, new_b),
                                           s["batch_left"])
+        if planner_model or open_arrival:
+            g_new = s["epoch_ctr"] + 1 + skip  # the new batch's global index
+            if open_arrival:
+                arrive_new = ep_arrival(g_new)
+                if policy == "token_bucket":
+                    # epoch g's plan also waits for its (epoch-granular)
+                    # token; the arrival stamp keeps the true arrival, so
+                    # latency includes the token wait
+                    arrive_new = torch.maximum(arrive_new, _sat_mul(
+                        torch.clamp(g_new - p["pol_tb_burst_e"] + 1, min=0),
+                        p["pol_tb_iv"],
+                    ))
+            else:
+                arrive_new = g_new * interval
         if planner_model:
-            g_new = s["epoch_ctr"] + 1  # the new batch's global index
-            arrive_new = g_new * interval
             lane = g_new % L
             at_lane = adv & (lane_ids == lane)
             lane_free_prev = _at(s["lane_free"], lane)
@@ -1789,22 +2070,30 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
                                           s["lane_start"])
             s["lane_free"] = torch.where(at_lane, ready, s["lane_free"])
             new_plan_fin = ready
+        elif open_arrival:
+            # a plan cannot start before its batch arrives
+            new_plan_fin = torch.maximum(arrive_new, s["plan_fin"]) + _at(
+                p["plan_rounds"], new_b)
         else:
             new_plan_fin = s["plan_fin"] + _at(p["plan_rounds"], new_b)
         s["plan_fin"] = torch.where(adv, new_plan_fin, s["plan_fin"])
-        if planner_model:
-            s["epoch_ctr"] = s["epoch_ctr"] + adv.to(I32)
+        if planner_model or open_arrival:
+            s["epoch_ctr"] = s["epoch_ctr"] + adv.to(I32) + skip
         s["cur_batch"] = new_b
 
         def next_plan_fin(nb):
-            # modeled plan-ready round of the next batch: what the
-            # pipelined level-0 prefix waits for
+            # modeled plan-ready round of the next batch (global epoch
+            # epoch_ctr + 1): what the pipelined level-0 prefix waits for
+            if not (planner_model or open_arrival):
+                return s["plan_fin"] + _at(p["plan_rounds"], nb)
+            g_nxt = s["epoch_ctr"] + 1
+            a_nxt = ep_arrival(g_nxt) if open_arrival else g_nxt * interval
             if planner_model:
-                g_nxt = s["epoch_ctr"] + 1
                 lane_free = _at(s["lane_free"], g_nxt % L)
-                return torch.maximum(g_nxt * interval, lane_free) + _at(
+                return torch.maximum(a_nxt, lane_free) + _at(
                     p["plan_work"], nb)
-            return s["plan_fin"] + _at(p["plan_rounds"], nb)
+            return torch.maximum(a_nxt, s["plan_fin"]) + _at(
+                p["plan_rounds"], nb)
 
         # -------------------------------------------- 2. admission
         # Empty slots pull the next positions of the current batch, in
@@ -1844,8 +2133,20 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
         new_tid = s["next_txn"] + rank
         tid = torch.where(adm, new_tid, tid)
         ts = torch.where(adm, new_tid, ts)
-        arrive = torch.where(adm, r, arrive)
+        # arrival stamp: the unit's epoch arrival under open arrival
+        # (pipelined early admissions belong to the next epoch), else
+        # the admission round
+        if open_arrival:
+            arr_new = ep_arrival(s["epoch_ctr"])
+            if pipe:
+                arr_new = torch.where(
+                    adm_pipe, ep_arrival(s["epoch_ctr"] + 1), arr_new)
+            arrive = torch.where(adm, arr_new, arrive)
+        else:
+            arrive = torch.where(adm, r, arrive)
         s["next_txn"] = s["next_txn"] + n_adm
+        if policy == "token_bucket":
+            s["pol_tb_adm"] = s["pol_tb_adm"] + n_adm
         # the reference's gathers clamp; widx is in range by construction
         wsafe = torch.clamp(widx, 0, NU - 1).long()
         if frag:
@@ -2037,6 +2338,14 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
         s["q_inflight"] = torch.where(
             qm, (tid >= 0).sum(dtype=I32), s["q_inflight"]
         )
+        if open_arrival:
+            # backlog in admission units: every unit of the epochs
+            # arrived by grid point x, minus the admission cursor
+            arrived = units_before(epochs_arrived_by(qgrid))
+            s["q_depth"] = torch.where(
+                qm, torch.clamp(arrived - s["next_txn"], min=0),
+                s["q_depth"],
+            )
         s["slots"] = torch.stack(
             [tid, widx, ts, phase, busy_until, busy_kind, msg_arrive, ftxn,
              arrive],

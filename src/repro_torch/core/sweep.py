@@ -82,9 +82,9 @@ def _zeros_like_counters() -> dict[str, np.ndarray]:
     return out
 
 
-def _result(cfg, snap, wsnap, ri, wri, wall) -> SimResult:
+def _result(cfg, plan, snap, wsnap, ri, wri, wall) -> SimResult:
     """Assemble the :class:`SimResult` of one cell (the reference's
-    ``_GroupRun.finish`` for a closed-loop cell)."""
+    ``_GroupRun.finish``)."""
     cm = cfg.cost
 
     def delta(k):
@@ -99,9 +99,15 @@ def _result(cfg, snap, wsnap, ri, wri, wall) -> SimResult:
         nm: float(cat[k]) / total_lane_rounds
         for k, nm in enumerate(_BREAKDOWN_NAMES)
     }
+    # goodput split (committed <= admitted <= offered): admitted is the
+    # arrival stream's consumption less the queue-side drops, offered
+    # the arrival schedule's output over the measured window (0 under
+    # closed loop, as in the reference)
     rejected = delta("pol_rejected")
     shed = delta("pol_shed")
     admitted = delta("next_txn") - rejected - shed
+    offered = engine_lib.offered_by_round(cfg, plan, ri) - (
+        engine_lib.offered_by_round(cfg, plan, wri))
     hist = snap["lat_hist"] - np.asarray(wsnap.get("lat_hist", 0), np.int64)
     qgrid = (
         np.arange(metrics_lib.QDEPTH_SAMPLES, dtype=np.int64) + 1
@@ -117,7 +123,7 @@ def _result(cfg, snap, wsnap, ri, wri, wall) -> SimResult:
         plan_lane_rounds=cfg.n_planner_lanes * meas_rounds,
         committed=commits,
         admitted=admitted,
-        offered=0,
+        offered=offered,
         rejected=rejected,
         shed=shed,
         timedout=delta("pol_timedout"),
@@ -195,4 +201,4 @@ def simulate_plans(
         torch.cuda.synchronize(dev)
     wall = time.time() - t0
     snap, wsnap, ri, wri = stop or (final, warm, rounds_done, warm_rounds)
-    return [_result(cfg, snap, wsnap, ri, wri, wall)]
+    return [_result(cfg, plan, snap, wsnap, ri, wri, wall)]

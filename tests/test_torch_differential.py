@@ -28,6 +28,14 @@ CELLS = {
     "waitfor_16": dict(protocol="twopl_waitfor", n_exec=16),
     "dreadlocks_8": dict(protocol="twopl_dreadlocks", n_exec=8),
     "pstore_8": dict(protocol="partitioned_store", n_exec=8),
+    # SPLIT variants (thread-local indexes, no shared-index penalty) and
+    # two outstanding txns per lane on the single-request protocols
+    "orthrus_split": dict(protocol="orthrus", n_cc=2, n_exec=6, window=2,
+                          split_index=True),
+    "df_split_8": dict(protocol="deadlock_free", n_exec=8, split_index=True),
+    "df_8_w2": dict(protocol="deadlock_free", n_exec=8, window=2),
+    "waitdie_8_w2": dict(protocol="twopl_waitdie", n_exec=8, window=2),
+    "dreadlocks_8_w2": dict(protocol="twopl_dreadlocks", n_exec=8, window=2),
 }
 # Fig 1's path: read-only YCSB under wait-die. Every grant sets a reader
 # bit and every release clears one; 40 slots span two bitmask words and

@@ -437,12 +437,6 @@ def test_config_properties_match_reference(kw):
 
 
 UNPORTED = [
-    dict(protocol="dgcc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
-    dict(protocol="quecc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
-    dict(protocol="scheduled", n_exec=4, epoch_interval_rounds=50),
-    dict(protocol="deadlock_free", n_exec=4, epoch_interval_rounds=50),
-    dict(protocol="orthrus", n_exec=4, n_cc=2, retry_budget=3),
-    dict(protocol="deadlock_free", n_exec=4, backoff_mode="exp"),
     dict(protocol="deadlock_free", n_exec=4, rounds_per_dispatch=2),
     dict(protocol="orthrus", n_exec=4, n_cc=2, state_layout="legacy"),
 ]
@@ -454,6 +448,31 @@ def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match=r"slice \d"):
         engine.run_simulation(engine.EngineConfig(**kw, **SIM), wl,
                               device="cpu")
+
+
+# open arrival and the overload layer, which raised until slice 7's
+# item 7 ported them: each now runs through both packages
+FORMERLY_UNPORTED = [
+    dict(protocol="dgcc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
+    dict(protocol="quecc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
+    dict(protocol="scheduled", n_exec=4, epoch_interval_rounds=50),
+    dict(protocol="deadlock_free", n_exec=4, epoch_interval_rounds=50),
+    dict(protocol="orthrus", n_exec=4, n_cc=2, retry_budget=3),
+    dict(protocol="deadlock_free", n_exec=4, backoff_mode="exp"),
+]
+
+
+@pytest.mark.parametrize("kw", FORMERLY_UNPORTED,
+                         ids=range(len(FORMERLY_UNPORTED)))
+def test_formerly_unported_paths_match_reference(kw):
+    wl, ref_wl = _workloads(YCSB)
+    got = engine.run_simulation(engine.EngineConfig(**kw, **SIM), wl,
+                                device="cpu")
+    ref = ref_engine.run_simulation(ref_engine.EngineConfig(**kw, **SIM),
+                                    ref_wl)
+    assert fingerprint(got, include_metrics=True) == fingerprint(
+        ref, include_metrics=True)
+    assert got.metrics.summary_row() == ref.metrics.summary_row()
 
 
 def test_one_plan_per_call():

@@ -75,14 +75,6 @@ BATCH_CELLS = sorted(
 )
 
 
-def _closed_loop_key(k):
-    """A batch plan key of the closed loop: not the open-arrival
-    (``cum_usize``), bursty-arrival (``ep_sched``, ``sched_*``) or
-    admission-policy (``pol_*``) keys, which come with slice 7."""
-    return k != "cum_usize" and not k.startswith(("ep_sched", "sched_",
-                                                   "pol_"))
-
-
 def test_batch_cells_cover_the_batch_engine():
     kw = [CELLS[n][1] for n in BATCH_CELLS]
     assert {e["protocol"] for e in kw} == {"dgcc", "quecc", "scheduled"}
@@ -90,11 +82,38 @@ def test_batch_cells_cover_the_batch_engine():
     assert any(e.get("n_planner_lanes") for e in kw)
 
 
-@pytest.mark.parametrize("name", BATCH_CELLS)
+# open-arrival batch cells of tests/test_overload.py: the bounded
+# backlog in epochs and the bursty schedule's period
+MP_WL = dict(kind="ycsb", num_txns=256, num_records=10_000, num_hot=8,
+             multipart_frac=1.0, num_partitions=8, batch_epoch=64, seed=0)
+BATCH_ENG = dict(protocol="dgcc", n_cc=2, n_exec=6, window=2,
+                 fragment_exec=True, epoch_interval_rounds=30)
+OPEN_BATCH_CELLS = {
+    "batch_bb": (MP_WL, dict(BATCH_ENG, admission_policy="bounded_backlog",
+                             backlog_cap=128)),
+    "batch_burst": (MP_WL, dict(BATCH_ENG, arrival_pattern="burst",
+                                burst_period_epochs=4, burst_on_epochs=1)),
+    "batch_tb": (MP_WL, dict(BATCH_ENG, admission_policy="token_bucket",
+                             token_interval_rounds=20, token_burst=32)),
+}
+ALL_BATCH_CELLS = {**{n: CELLS[n] for n in BATCH_CELLS}, **OPEN_BATCH_CELLS}
+
+
+def test_open_batch_cells_cover_open_arrival():
+    kw = [e for _w, e in ALL_BATCH_CELLS.values()]
+    assert any(e.get("epoch_interval_rounds") and e.get("n_planner_lanes")
+               for e in kw)
+    assert {e.get("admission_policy") for e in kw} >= {
+        "bounded_backlog", "token_bucket"}
+    assert any(e.get("arrival_pattern") == "burst" for e in kw)
+
+
+@pytest.mark.parametrize("name", sorted(ALL_BATCH_CELLS))
 def test_batch_plan_arrays_match_reference(name):
-    """plan_meta and every closed-loop plan_device array of the batch
-    engine, planning latencies and planner-lane work included."""
-    wl_kw, eng_kw = CELLS[name]
+    """plan_meta and every plan_device array of the batch engine,
+    planning latencies, planner-lane work and the open-arrival and
+    policy keys included."""
+    wl_kw, eng_kw = ALL_BATCH_CELLS[name]
     cfg = engine.EngineConfig(**eng_kw, **SIM)
     ref_cfg = ref_engine.EngineConfig(**eng_kw, **SIM)
     plan = engine.make_plan(
@@ -105,8 +124,7 @@ def test_batch_plan_arrays_match_reference(name):
     assert dataclasses.astuple(engine.plan_meta(cfg, plan)) == (
         dataclasses.astuple(ref_engine.plan_meta(ref_cfg, ref_plan)))
     p = engine.plan_device(cfg, plan)
-    ref_p = {k: v for k, v in ref_engine.plan_device(ref_cfg, ref_plan).items()
-             if _closed_loop_key(k)}
+    ref_p = ref_engine.plan_device(ref_cfg, ref_plan)
     assert sorted(p) == sorted(ref_p)
     for k, v in ref_p.items():
         assert p[k].dtype == np.asarray(v).dtype, k
