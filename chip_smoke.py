@@ -32,7 +32,12 @@ Phases (each raises on failure; the script then exits non-zero):
                fused launch against the eager chain it replaces (graph
                replay and host-issued), an empty launch (the floor);
   3. goldens — replay all 17 cells of tests/golden/ on the card,
-               bit-exactly (the overload cells' metrics included);
+               bit-exactly (the overload cells' metrics included). Here
+               and in phases 4-10 ``run_simulation`` runs every cell
+               through its cached chunk runner: one replay of a captured
+               CUDA graph per dispatch (K = 1 round), one read of ``r``
+               per replay; a kernel's launches count per replay what its
+               capture recorded;
   4. main path, slice 1 — YCSB at the paper's width (10 M records, 64
                hot, 8,192 txns; SIM_CUT's depth) through
                ``run_simulation``: orthrus (16 CC
@@ -124,7 +129,29 @@ Phases (each raises on failure; the script then exits non-zero):
                budget of 3 and exp backoff on both paths (identical;
                lock_grant launches = steps); step profiles of the
                deadline-shed cell against closed-loop deadlock_free, and
-               of the planned dgcc's two paths, in turns.
+               of the planned dgcc's two paths, in turns;
+ 11. main path, slice 7: K-fused dispatch — ``rounds_per_dispatch`` at
+               the paper's width: each of K_CELLS (orthrus on the kernel
+               and the plain path, deadlock_free, dgcc, quecc,
+               quecc_frag_pipe and scheduled on the kernel path, the three
+               dynamic-2PL schemes, the partitioned store, fig17's
+               deadline-shed cell; the lock-table cells at SIM_K's 1,000
+               rounds, the batch cells at SIM_K_BATCH's 2,000, half their
+               depth in phases 4-10) run three ways: the
+               eager loop at K = 1 (``sweep.simulate_eager``, the
+               oracle), the graph at K = 1 and at K = 8; orthrus and
+               twopl_waitdie also at K = 5 (a cache hit on K = 8's
+               runner) and K = 32. Every fingerprint identical (metrics
+               and counters incl.); lock_grant and dep_wavefront launch
+               K x replays, steps_executed of them active. One cached
+               orthrus runner through two open-arrival cells that differ
+               only in the epoch interval (200, 400, then 200 again), each
+               giving a fresh eager run's fingerprint. For each cell and
+               K: whole-run wall ms a step, host syncs a step,
+               dispatches, the share of inactive inner steps, the capture
+               time; then per-step windows in turns (wall ms, CUDA
+               kernels = the graph's kernel nodes under replay, device ms,
+               busy share); the runner cache and the card's memory.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -325,6 +352,33 @@ BATCH_CELLS = (("dgcc", DGCC_FULL, YCSB_FULL),
                ("quecc", QUECC_FULL, YCSB_FULL),
                ("quecc_frag_pipe", QUECC_FRAG_PIPE_FULL, YCSB_FIG14),
                ("scheduled", SCHEDULED_FULL, YCSB_FIG18))
+# slice 7, item 8: K-fused dispatch. Each cell runs three ways (the
+# eager oracle issues every kernel from the host), so each runs half its
+# depth of phases 4, 5, 9 and 10: the lock-table cells 1,000 rounds
+# (SIM_K), the batch cells 2,000 (SIM_K_BATCH); widths stay
+SIM_K = dict(max_rounds=1000, warmup_rounds=250, chunk_rounds=250,
+             target_commits=10**9)
+SIM_K_BATCH = dict(max_rounds=2000, warmup_rounds=500, chunk_rounds=500,
+                   target_commits=10**9)
+K_FUSED = 8
+# name, engine kwargs, workload kwargs, depth, the kernel on its path
+K_CELLS = (
+    ("orthrus", ORTHRUS_FULL, YCSB_FULL, SIM_K, "lock_grant"),
+    ("orthrus plain path", dict(ORTHRUS_FULL, kernel_impl="jnp"), YCSB_FULL,
+     SIM_K, None),
+    ("deadlock_free", DF_FULL, YCSB_FULL, SIM_K, None),
+    ("dgcc", DGCC_FULL, YCSB_FULL, SIM_K_BATCH, "dep_wavefront"),
+    ("quecc", QUECC_FULL, YCSB_FULL, SIM_K_BATCH, "dep_wavefront"),
+    ("quecc_frag_pipe", QUECC_FRAG_PIPE_FULL, YCSB_FIG14, SIM_K_BATCH,
+     "dep_wavefront"),
+    ("scheduled", SCHEDULED_FULL, YCSB_FIG18, SIM_K_BATCH, "dep_wavefront"),
+) + tuple((p, dict(protocol=p, n_exec=80), YCSB_FULL, SIM_K, None)
+          for p in DL_PROTOCOLS) + (
+    ("partitioned_store", PSTORE_FULL, YCSB_FIG6, SIM_K, None),
+    ("fig17_i200_deadline_shed", FIG17_SHED, YCSB_FIG16, SIM_K, None),
+)
+# the cells that also run K = 5 (K = 8's runner: a cache hit) and K = 32
+K_MORE = ("orthrus", "twopl_waitdie")
 
 
 def fingerprint(res, include_metrics: bool = False) -> dict:
@@ -536,7 +590,8 @@ def chain_inputs(step_args):
 def capture_orthrus_round(device, max_rounds: int = 400):
     """The fused grant's inputs (cloned) of the round with the most
     pending entries in a short full-width ORTHRUS run."""
-    from repro_torch.core.engine import EngineConfig, run_simulation
+    from repro_torch.core.engine import EngineConfig, make_plan
+    from repro_torch.core.sweep import simulate_eager
     from repro_torch.core.workloads import WorkloadConfig, make_workload
     from repro_torch.kernels.lock_grant import ops
 
@@ -552,15 +607,14 @@ def capture_orthrus_round(device, max_rounds: int = 400):
                            for a in args]
         return original(*args, **kw)
 
+    cfg = EngineConfig(**ORTHRUS_FULL, max_rounds=max_rounds,
+                       warmup_rounds=0, chunk_rounds=max_rounds,
+                       target_commits=10**9, kernel_impl="pallas")
+    plan = make_plan(cfg, make_workload(WorkloadConfig(**YCSB_FULL)))
     ops.lock_grant_step = capture
     try:
-        run_simulation(
-            EngineConfig(**ORTHRUS_FULL, max_rounds=max_rounds,
-                         warmup_rounds=0, chunk_rounds=max_rounds,
-                         target_commits=10**9, kernel_impl="pallas"),
-            make_workload(WorkloadConfig(**YCSB_FULL)),
-            device=device,
-        )
+        # eager: the capture reads each round's inputs on the host
+        simulate_eager(cfg, plan, device=device)
     finally:
         ops.lock_grant_step = original
     if not captured:
@@ -823,7 +877,8 @@ def capture_scan(eng_kw, wl_kw, device, max_rounds: int = 1500):
     """The row form's inputs (slot units, predecessor rows, the committed
     flags; cloned) of the readiness check with the most live edges in a
     short run of one full-width batch cell."""
-    from repro_torch.core.engine import EngineConfig, run_simulation
+    from repro_torch.core.engine import EngineConfig, make_plan
+    from repro_torch.core.sweep import simulate_eager
     from repro_torch.core.workloads import WorkloadConfig, make_workload
     from repro_torch.kernels.dep_wavefront import ops
 
@@ -838,15 +893,14 @@ def capture_scan(eng_kw, wl_kw, device, max_rounds: int = 1500):
             captured[:] = [a.clone() for a in args]
         return original(*args, **kw)
 
+    cfg = EngineConfig(**eng_kw, max_rounds=max_rounds, warmup_rounds=0,
+                       chunk_rounds=max_rounds, target_commits=10**9,
+                       kernel_impl="pallas")
+    plan = make_plan(cfg, make_workload(WorkloadConfig(**wl_kw)))
     ops.dep_wavefront_rows = capture
     try:
-        run_simulation(
-            EngineConfig(**eng_kw, max_rounds=max_rounds, warmup_rounds=0,
-                         chunk_rounds=max_rounds, target_commits=10**9,
-                         kernel_impl="pallas"),
-            make_workload(WorkloadConfig(**wl_kw)),
-            device=device,
-        )
+        # eager: the capture reads each check's inputs on the host
+        simulate_eager(cfg, plan, device=device)
     finally:
         ops.dep_wavefront_rows = original
     if not captured:
@@ -2210,7 +2264,8 @@ def backlog_samples(res, eng_kw, sim=SIM_FULL) -> list:
 def both_paths(name, eng_kw, workload, device, ops, sim=SIM_FULL):
     """One cell on the kernel path and the plain path: identical
     fingerprints and ``raw`` counters (metrics included), ``ops``'s
-    launches = steps on the kernel path and none on the plain one.
+    launches = steps on the kernel path (one a replay of its K = 1
+    graph) and none on the plain one.
     Returns the kernel path's result and its launches."""
     runs, launches = {}, 0
     for impl in ("auto", "jnp"):
@@ -2345,6 +2400,259 @@ def main_path_slice7_open(device) -> dict:
     profile_steps("fig16_h16_i200_dgcc_planned", {
         "kernel path": dgcc, "plain path": dict(dgcc, kernel_impl="jnp")},
         wl16, device, warm=100, timed=50, watch="dep_wavefront")
+    return counts
+
+
+def graph_of(runner, state=None):
+    """The captured dispatch (``ChunkRunner.graphs``) of a runner whose
+    state buffers are ``state`` (the one it has, where ``None``)."""
+    gs = [g for g in runner.graphs.values()
+          if state is None or g.state is state]
+    if len(gs) != 1:
+        raise AssertionError(f"{len(gs)} graphs match")
+    return gs[0]
+
+
+def k_run(mode, k, eng_kw, plan, sim, kernel, device):
+    """One whole run of a cell's ``plan``: ``mode`` "eager"
+    (``simulate_eager``, one read of ``r`` a step) or "graph"
+    (``simulate_plans``: its cached runner, a replay per dispatch of K =
+    ``k`` rounds). Holds the kernel counts to the dispatches: the eager
+    run launches ``kernel`` once a step, a graph once per replay per
+    inner step (K x replays, of which ``steps_executed`` are active),
+    and no other kernel launches."""
+    from repro_torch.core import engine, sweep
+
+    cfg = engine.EngineConfig(**eng_kw, **sim, rounds_per_dispatch=k)
+    meta = engine.plan_meta(cfg, plan)
+    ops = kernel_ops()
+    before = {n: m.launches for n, m in ops.items()}
+    misses = sweep.runner_cache_info()["misses"]
+    runner = None if mode == "eager" else sweep.get_runner(cfg, meta, device)
+    hit = int(runner is not None
+              and sweep.runner_cache_info()["misses"] == misses)
+    replays0 = runner.replays if runner else 0
+    t0 = time.perf_counter()
+    if runner is None:
+        res = sweep.simulate_eager(cfg, plan, device=device)
+    else:
+        res = sweep.simulate_plans(cfg, [plan], device=device)[0]
+    wall = time.perf_counter() - t0
+    steps = res.raw["steps_executed"]
+    kk = 1 if runner is None else cfg.dispatch_rounds
+    replays = steps if runner is None else runner.replays - replays0
+    launched = {n: m.launches - before[n] for n, m in ops.items()}
+    n = launched.pop(kernel) if kernel else 0
+    if any(launched.values()) or (kernel and n != kk * replays) \
+            or kk * replays < steps:
+        raise AssertionError(f"{mode} K={k}: {replays} dispatches of "
+                             f"{kk} for {steps} steps, {kernel} launches "
+                             f"{n}, others {launched}")
+    return dict(res=res, wall=wall, steps=steps, replays=replays, K=kk,
+                launches=n, runner=runner, cfg=cfg, meta=meta, hit=hit)
+
+
+def k_windows(name, runs: dict, device, steps: int = 32,
+              profiled: int = 8) -> None:
+    """Per-step readings of the eager dispatch and of each graph of one
+    cell, from the end of its runs onwards with the chunk bound far ahead
+    (every inner step active): wall ms a step in turns (each path's state
+    carried on, one read of ``r`` per dispatch); each graph's span, CUDA
+    events around back-to-back replays; then under torch.profiler the
+    CUDA kernels a step (in a replay CUPTI reports each kernel node of
+    the graph as its own kernel), device ms a step and the busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    one = graph_of(runs["graph K=1"]["runner"])
+    far = int(one.state["r"]) + 10**6
+    eager = dict(d=runs["graph K=1"]["runner"].dispatch, p=one.p,
+                 s={k: v.clone() for k, v in one.state.items()},
+                 r_end=torch.tensor(far, dtype=torch.int32, device=device))
+    graphs = {}
+    for label, run in runs.items():
+        if label.startswith("graph") and label != "graph K=5":
+            g = graphs[label] = graph_of(run["runner"])
+            g.r_end.fill_(far)
+    ks = {label: runs[label]["K"] for label in ["eager K=1", *graphs]}
+
+    def do(label, n_steps):
+        if label in graphs:
+            g = graphs[label]
+            for _ in range(n_steps // ks[label]):
+                g.replay()
+                int(g.state["r"])
+        else:
+            for _ in range(n_steps):
+                eager["s"] = eager["d"](eager["p"], eager["s"],
+                                        eager["r_end"])
+                int(eager["s"]["r"])
+
+    def wall(label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        do(label, steps)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    def span(label):
+        """Device ms a step from CUDA events around back-to-back
+        replays (no host read between them): the graph's own span,
+        gaps between its nodes included."""
+        g, k = graphs[label], ks[label]
+        n = max(steps // k, 1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            g.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / (n * k)
+
+    for label in ks:
+        do(label, max(ks[label], 8))
+    walls = in_turns({label: label for label in ks}, wall)
+    spans = {label: span(label) for label in graphs}
+    for label, k in ks.items():
+        n = max(profiled, k)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            do(label, n)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        n_kernels = sum(e.count for e in kern) / n
+        dev_ms = sum(e.self_device_time_total for e in kern) / n / 1e3
+        if n_kernels <= 0:
+            raise AssertionError(f"{name} {label}: the profiler saw no CUDA "
+                                 f"kernel")
+        readings, wall_ms = walls[label]
+        what, spanned = "CUDA kernels", ""
+        if label in spans:
+            what = "CUDA kernels (the graph's kernel nodes)"
+            spanned = (f", graph span {spans[label]:.4f} ms (busy "
+                       f"{dev_ms / spans[label]:.4f} of it)")
+        print(f"k-fused {name} {label} per step: wall {wall_ms:.4f} ms "
+              f"(turns {' / '.join(f'{w:.4f}' for w in readings)}), "
+              f"{n_kernels:.1f} {what}, device {dev_ms:.4f} ms, device busy "
+              f"share {dev_ms / wall_ms:.4f}{spanned}")
+
+
+def k_cell(name, eng_kw, wl, sim, kernel, device) -> int:
+    """Phase 11's readings of one cell: the eager loop at K = 1 (the
+    oracle), its cached graph at K = 1 and at K = 8 (and in K_MORE at 5,
+    a cache hit on K = 8's runner, and 32), identical fingerprints
+    (metrics and ``raw`` counters incl.), the per-step windows. Returns
+    the kernel's launches."""
+    from repro_torch.core import engine
+
+    plan = engine.make_plan(engine.EngineConfig(**eng_kw, **sim), wl)
+    runs = {}
+    order = [("graph", 1), ("graph", K_FUSED), ("eager", 1)]
+    if name in K_MORE:
+        order += [("graph", 5), ("graph", 32)]
+    for mode, k in order:
+        runs[f"{mode} K={k}"] = k_run(mode, k, eng_kw, plan, sim, kernel,
+                                      device)
+    if name in K_MORE and runs["graph K=5"]["hit"] != 1:
+        raise AssertionError(f"{name}: K = 5 missed K = 8's runner")
+    skip = {"wall_s_group"}
+    want = runs["eager K=1"]["res"]
+    for label, run in runs.items():
+        res = run["res"]
+        if fingerprint(res, True) != fingerprint(want, True) \
+                or res.metrics.summary_row() != want.metrics.summary_row() \
+                or {k: v for k, v in res.raw.items() if k not in skip} != {
+                    k: v for k, v in want.raw.items() if k not in skip}:
+            raise AssertionError(f"{name} {label}: the fingerprint differs "
+                                 f"from the eager loop's")
+    full = json.dumps(fingerprint(want, True), sort_keys=True)
+    print(f"k-fused {name}: fingerprints identical over "
+          f"{', '.join(runs)} (metrics and counters incl.; sha256 "
+          f"{hashlib.sha256(full.encode()).hexdigest()[:16]})")
+    for label, run in runs.items():
+        steps, k, reps = run["steps"], run["K"], run["replays"]
+        capture = (sum(g.capture_s for g in run["runner"].graphs.values())
+                   if run["runner"] else 0.0)
+        print(f"k-fused {name} {label} whole run: wall {run['wall']:.3f} s "
+              f"({run['wall'] / steps * 1e3:.4f} ms/step, capture incl. "
+              f"on a cache miss), steps {steps}, dispatches {reps}, host "
+              f"syncs/step {reps / steps:.4f}, inactive inner steps "
+              f"{(k * reps - steps) / (k * reps):.4f}, "
+              f"{kernel or 'kernel'} launches {run['launches']}, "
+              f"cache hit {run['hit']}, capture {capture:.3f} s")
+    k_windows(name, runs, device)
+    return sum(run["launches"] for run in runs.values())
+
+
+def k_sweep_case(wl, device) -> int:
+    """One cached orthrus runner (K = 8) through two open-arrival cells
+    that differ only in the epoch interval, then the first again: each
+    gives the fingerprint of a fresh eager run. Returns the lock_grant
+    launches."""
+    from repro_torch.core import engine
+
+    cells = [dict(ORTHRUS_FULL, epoch_interval_rounds=iv)
+             for iv in (200, 400, 200)]
+    fresh = {}
+    launches = 0
+    for i, eng_kw in enumerate(cells):
+        iv = eng_kw["epoch_interval_rounds"]
+        plan = engine.make_plan(engine.EngineConfig(**eng_kw, **SIM_K), wl)
+        if iv not in fresh:
+            run = k_run("eager", 1, eng_kw, plan, SIM_K, "lock_grant",
+                        device)
+            fresh[iv] = fingerprint(run["res"], True)
+            launches += run["launches"]
+        run = k_run("graph", K_FUSED, eng_kw, plan, SIM_K, "lock_grant",
+                    device)
+        launches += run["launches"]
+        if fingerprint(run["res"], True) != fresh[iv] or run["hit"] != (
+                i > 0):
+            raise AssertionError(f"orthrus sweep cell {i} (interval {iv}): "
+                                 f"diverged from a fresh run, or cache hit "
+                                 f"{run['hit']}")
+        m = run["res"].metrics
+        print(f"k-fused orthrus sweep cell {i}, epoch interval {iv}: the "
+              f"fresh run's fingerprint, cache hit {run['hit']}, "
+              f"{run['steps']} steps in {run['wall']:.3f} s; commits "
+              f"{run['res'].commits}, offered {m.offered}, q_depth max "
+              f"{int(max(m.q_depth))}")
+    if fresh[200] == fresh[400]:
+        raise AssertionError("the two epoch intervals gave one fingerprint")
+    return launches
+
+
+def main_path_slice7_kfused(device) -> dict:
+    """Phase 11: K-fused dispatch at the paper's width. Returns the
+    lock_grant and dep_wavefront launches of the path."""
+    import torch
+
+    from repro_torch.core import sweep
+
+    workloads = {}
+    for _name, _eng_kw, wl_kw, _sim, _kernel in K_CELLS:
+        key = json.dumps(wl_kw, sort_keys=True)
+        if key not in workloads:
+            workloads[key] = make_full_workload(wl_kw)
+    reset_launches()
+    counts = {"lock_grant": 0, "dep_wavefront": 0}
+    for name, eng_kw, wl_kw, sim, kernel in K_CELLS:
+        n = k_cell(name, eng_kw, workloads[json.dumps(wl_kw, sort_keys=True)],
+                   sim, kernel, device)
+        if kernel:
+            counts[kernel] += n
+    counts["lock_grant"] += k_sweep_case(
+        workloads[json.dumps(YCSB_FULL, sort_keys=True)], device)
+    info = sweep.runner_cache_info()
+    print(f"k-fused: runner cache {info['entries']} entries, "
+          f"{info['hits']} hits, {info['misses']} misses, "
+          f"{info['evictions']} evictions; card memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+    print(f"slice 7 K-fused path: kernel launches {counts}")
     return counts
 
 
@@ -2894,18 +3202,22 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
                   watch: str | None = None) -> None:
     """Where a full-width step's time goes, for each path of one cell
     (``paths``: label -> engine kwargs, e.g. the kernel and the plain
-    path): wall ms per step as the host loop runs it (one read of ``r``
-    per step), timed in turns (the paths in order, then in reverse, three
-    times, each path's state carried on, so all cover the same rounds;
-    the host's rate drifts within a call); then under
-    torch.profiler the CUDA kernels per step, their device ms per step
+    path), in two columns: the eager step as the host issues it (one
+    read of ``r`` per step), and the path's K = 1 graph (its cached
+    runner, the one ``run_simulation`` replays: one replay and one read
+    of ``r`` per step), started from the eager state after the warm-up.
+    Wall ms per step timed in turns (every column in order, then in
+    reverse, three times, each column's state carried on, so all cover
+    the same rounds; the host's rate drifts within a call); then under
+    torch.profiler the CUDA kernels per step (under replay CUPTI
+    reports each kernel node of the graph), their device ms per step
     and the top kernels by device time; with ``watch``, the launches per
     step of the kernels whose names hold it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import engine
+    from repro_torch.core import engine, sweep
     from repro_torch.core.convert import plan_from_numpy
 
     r_end = torch.tensor(SIM_FULL["max_rounds"], dtype=torch.int32,
@@ -2924,10 +3236,16 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
             s = engine._state0(cfg, plan.num_records, cfg.n_slots,
                                meta.max_keys, device)
             step = engine.make_step(cfg, meta, device)
-        runs[label] = dict(p=p, s=s, step=step, batch=batch)
+        runs[label] = dict(p=p, s=s, step=step, batch=batch, cfg=cfg,
+                           meta=meta)
 
     def run(label, n):
         st = runs[label]
+        if "g" in st:
+            for _ in range(n):
+                st["g"].replay()
+                int(st["g"].state["r"])
+            return
         for _ in range(n):
             st["s"] = st["step"](
                 st["p"], st["s"] if st["batch"] else engine.rebase_enq(
@@ -2943,8 +3261,16 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
 
     for label in paths:
         run(label, warm)
-    walls = in_turns({label: label for label in paths}, wall, rounds=3)
     for label in paths:
+        st = runs[label]
+        runner = sweep.get_runner(st["cfg"], st["meta"], device)
+        # loads the eager state into the graph's buffers, replays none
+        g = graph_of(runner, runner(st["p"], st["s"], int(st["s"]["r"])))
+        g.r_end.fill_(SIM_FULL["max_rounds"])
+        runs[f"{label} graph K=1"] = dict(g=g)
+        run(f"{label} graph K=1", 8)
+    walls = in_turns({label: label for label in runs}, wall, rounds=3)
+    for label in runs:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run(label, profiled)
@@ -2962,7 +3288,9 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
         if watch:
             n_watch = sum(e.count for e in kern if watch in e.key) / profiled
             watched = f", {watch} {n_watch:.2f} launches/step"
-        print(f"profile {name} {label} (rounds {int(runs[label]['s']['r'])}"
+        state = runs[label]["g"].state if "g" in runs[label] else (
+            runs[label]["s"])
+        print(f"profile {name} {label} (rounds {int(state['r'])}"
               f"): wall {wall_ms:.4f} ms/step (turns "
               f"{' / '.join(f'{w:.4f}' for w in readings)}), "
               f"{n_kernels:.1f} CUDA kernels/step, device {dev_ms:.4f} "
@@ -3073,6 +3401,10 @@ def main() -> int:
                         main_path_slice7_open, device)
     rows[0]["launches"] += open_counts["lock_grant"]
     rows[1]["launches"] += open_counts["dep_wavefront"]
+    k_counts = phase("main path, slice 7: K-fused dispatch",
+                     main_path_slice7_kfused, device)
+    rows[0]["launches"] += k_counts["lock_grant"]
+    rows[1]["launches"] += k_counts["dep_wavefront"]
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -6,8 +6,9 @@ cycles); in each round every lane interacts with the lock table at most
 once. See the reference module for the protocol families and the cost
 model; this module keeps its names, row constants and stage numbering.
 
-Ported so far, ``release_path`` "csr" or "dense", one round per
-dispatch, with event leaping on or off, closed loop or open epoch
+Ported so far, ``release_path`` "csr" or "dense", any
+``rounds_per_dispatch`` (the dispatch is ``repro_torch.core.sweep``'s),
+with event leaping on or off, closed loop or open epoch
 arrival (uniform, burst or diurnal) under every admission policy, retry
 budget and backoff mode of the overload layer:
 
@@ -354,10 +355,6 @@ class EngineConfig:
 
 def check_ported(cfg: EngineConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.dispatch_rounds > 1:
-        raise NotImplementedError(
-            "rounds_per_dispatch > 1 is not ported yet (slice 7)"
-        )
     if cfg.state_layout != "packed":
         raise NotImplementedError(
             'state_layout="legacy" is not ported yet (slice 8)'
@@ -772,7 +769,8 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     :func:`plan_device`), ``s`` the round state, ``r_end`` the exclusive
     chunk bound (an int32 0-d tensor) that event leaps are clamped to.
     The step returns a new state dict; it updates the per-record arrays
-    in place.
+    of ``DROP_ROW_ARRAYS`` in place (``sweep.guard_step`` keeps them
+    when the step must not run).
     """
     check_ported(cfg)
     dev = torch.device(device)
@@ -794,9 +792,19 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     has_budget = cfg.retry_budget > 0
     bursty = cfg.arrival_pattern != "uniform"
 
-    def const(v):
-        return torch.tensor(v, dtype=I32, device=dev)
+    consts: dict = {}
 
+    def const(v):
+        """The int32 0-d tensor ``v`` on the device, made once: a step
+        copies nothing from the host (a CUDA graph cannot capture that
+        copy)."""
+        if v not in consts:
+            consts[v] = torch.tensor(v, dtype=I32, device=dev)
+        return consts[v]
+
+    for v in (INIT, ACQ, MSG, READY, EXEC, REL, CAT_LOCK, CAT_DL, I32_MIN,
+              -1):
+        const(v)  # every constant the step asks for, made here
     lane_of = torch.arange(T, dtype=I32, device=dev) // W
     lane_idx = lane_of.long()
     slot_ids = torch.arange(T, dtype=I32, device=dev)
@@ -1074,7 +1082,8 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
             do_rel = proc2d & rel_keys
             rel_k = torch.where(do_rel, keys, 0)
             is_wr = do_rel & (modes == MODE_WRITE)
-            s["wh"][torch.where(is_wr, rel_k, R).reshape(-1).long()] = -1
+            s["wh"].index_fill_(
+                0, torch.where(is_wr, rel_k, R).reshape(-1).long(), -1)
             is_rd = do_rel & (modes == MODE_READ)
             s["rc"].index_add_(
                 0, torch.where(is_rd, rel_k, R).reshape(-1),
@@ -1089,7 +1098,8 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
             rel_entries = rel_now[:, None] & s["granted"]
             rel_k = torch.where(rel_entries, keys, 0)
             is_wr = rel_entries & (modes == MODE_WRITE)
-            s["wh"][torch.where(is_wr, rel_k, R).reshape(-1).long()] = -1
+            s["wh"].index_fill_(
+                0, torch.where(is_wr, rel_k, R).reshape(-1).long(), -1)
             is_rd = rel_entries & (modes == MODE_READ)
             s["rc"].index_add_(
                 0, torch.where(is_rd, rel_k, R).reshape(-1),
@@ -2208,7 +2218,7 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
         # txn commits (once) when the count hits zero.
         free = busy_until <= r
         fin = (phase == EXEC) & free
-        done[torch.where(fin, widx, NU).long()] = True
+        done.index_fill_(0, torch.where(fin, widx, NU).long(), True)
         if frag:
             tl.index_add_(0, torch.where(fin, ftxn, N), neg_ones)
             tl_t = tl[torch.where(fin, ftxn, 0).long()]

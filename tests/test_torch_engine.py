@@ -437,7 +437,6 @@ def test_config_properties_match_reference(kw):
 
 
 UNPORTED = [
-    dict(protocol="deadlock_free", n_exec=4, rounds_per_dispatch=2),
     dict(protocol="orthrus", n_exec=4, n_cc=2, state_layout="legacy"),
 ]
 
@@ -451,7 +450,8 @@ def test_unported_paths_raise(kw):
 
 
 # open arrival and the overload layer, which raised until slice 7's
-# item 7 ported them: each now runs through both packages
+# item 7 ported them, and K-fused dispatch (item 8): each now runs
+# through both packages
 FORMERLY_UNPORTED = [
     dict(protocol="dgcc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
     dict(protocol="quecc", n_exec=4, n_cc=2, epoch_interval_rounds=50),
@@ -459,6 +459,7 @@ FORMERLY_UNPORTED = [
     dict(protocol="deadlock_free", n_exec=4, epoch_interval_rounds=50),
     dict(protocol="orthrus", n_exec=4, n_cc=2, retry_budget=3),
     dict(protocol="deadlock_free", n_exec=4, backoff_mode="exp"),
+    dict(protocol="deadlock_free", n_exec=4, rounds_per_dispatch=2),
 ]
 
 
