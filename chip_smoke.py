@@ -152,6 +152,28 @@ Phases (each raises on failure; the script then exits non-zero):
                time; then per-step windows in turns (wall ms, CUDA
                kernels = the graph's kernel nodes under replay, device ms,
                busy share); the runner cache and the card's memory.
+ 12. main path, slice 8: the multi-cell sweep — ``sweep.run_cells`` at
+               the paper's width: Fig 13's contention axis (its 8
+               protocols at 40 lanes, the message-based ones 8 + 32 at
+               window 4, x hot sets 1,024, 64 and 16: 24 cells, SIM_K's
+               depth) per cell through ``run_simulation`` and as groups
+               under SERIAL_MODE and SweepMode(1, 2, early exit): a group
+               of C cells is one CUDA graph with a branch per cell (a
+               side stream each), one replay and one read of the [C]
+               ``r`` vector per dispatch of every cell. Every fingerprint
+               equal to its single-cell run (metrics and counters incl.),
+               ``group_cells`` the group's size; B1 and B2 launch C x K
+               a replay of a group (inactive branches incl.), K a replay
+               of a one-cell runner. Each group's size and capture time;
+               the sweep's wall as cells/s against per-cell runs in turns
+               (warm caches); the orthrus and dgcc groups' span, device
+               ms and busy share a replay beside one of their cells' K =
+               1 graph; the reference's sweep subset (twopl_waitdie 40
+               lanes, dgcc 8 + 32, x the three hot sets) with a finite
+               commit target, the stop boundary of each cell, two
+               distinct stops in one group required; the 17 goldens twice
+               in one call, bit-exact; the runner cache and the card's
+               peak memory.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -379,6 +401,24 @@ K_CELLS = (
 )
 # the cells that also run K = 5 (K = 8's runner: a cache hit) and K = 32
 K_MORE = ("orthrus", "twopl_waitdie")
+
+# slice 8, item 9: the multi-cell sweep. Fig 13's contention axis
+# (benchmarks/figures.py:472-516): its 8 protocols at 40 lanes (the
+# message-based ones 8 CC/planner + 32 exec, window 4) x hot sets 1,024,
+# 64 and 16 on YCSB_FULL, at SIM_K's depth with no commit target
+SWEEP_LANES = 40
+SWEEP_HOTS = (1024, 64, 16)
+SWEEP_PROTOCOLS = (
+    tuple((p, dict(protocol=p, n_exec=SWEEP_LANES))
+          for p in DL_PROTOCOLS + ("deadlock_free", "partitioned_store"))
+    + tuple((p, dict(protocol=p, n_cc=SWEEP_LANES // 5,
+                     n_exec=SWEEP_LANES - SWEEP_LANES // 5, window=4))
+            for p in ("orthrus", "dgcc", "quecc")))
+# the reference's own sweep subset (benchmarks/perf_smoke.py:181-200):
+# the saturated lock-table protocol and the batch-planned one across the
+# contention axis, here with a finite commit target (the early exit)
+EXIT_PROTOCOLS = ("twopl_waitdie", "dgcc")
+SWEEP_MODE_ARGS = dict(devices=1, pipeline=2, early_exit=True)
 
 
 def fingerprint(res, include_metrics: bool = False) -> dict:
@@ -2656,6 +2696,297 @@ def main_path_slice7_kfused(device) -> dict:
     return counts
 
 
+def sweep_kernel(cfg, meta, device):
+    """The kernel a cell's step launches once on ``device`` (B1 on
+    orthrus' kernel path, B2 on a batch cell with predecessor edges)."""
+    from repro_torch.kernels import use_kernel
+
+    if not use_kernel(cfg.kernel_impl, device):
+        return None
+    if cfg.protocol == "orthrus":
+        return "lock_grant"
+    width = meta.frag_pred_width if cfg.fragment_exec else meta.pred_width
+    return "dep_wavefront" if cfg.is_batch_planned and width > 0 else None
+
+
+def counted_run(label, fn):
+    """``fn()`` (a sweep or per-cell runs), holding B1's and B2's
+    launches to the replays of the runners it drove: a group runner's
+    C x K a replay (its inactive branches' included), one cell's K.
+    Returns (fn's result, wall s, launches by kernel)."""
+    from repro_torch.core import sweep
+
+    ops = kernel_ops()
+    names = ("lock_grant", "dep_wavefront")
+    launches = {n: ops[n].launches for n in names}
+    replays = {key: r.replays for key, r in sweep._RUNNER_CACHE.items()}
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    want = dict.fromkeys(names, 0)
+    for key, r in sweep._RUNNER_CACHE.items():
+        kernel = sweep_kernel(r.cfg, r.meta, r.device)
+        if kernel:
+            want[kernel] += (getattr(r, "n", 1) * r.cfg.dispatch_rounds
+                             * (r.replays - replays.get(key, 0)))
+    got = {n: ops[n].launches - launches[n] for n in names}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, the runners' "
+                             f"replays give {want}")
+    return out, wall, got
+
+
+def same_results(label, got, want, group_sizes=None) -> None:
+    """Fingerprints, metrics and ``raw`` counters equal (the wall and,
+    against one-cell runs, ``group_cells`` aside); ``group_cells`` equal
+    to ``group_sizes``."""
+    skip = {"wall_s_group", "group_cells"}
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if fingerprint(g, True) != fingerprint(w, True) \
+                or g.metrics.summary_row() != w.metrics.summary_row() \
+                or {k: v for k, v in g.raw.items() if k not in skip} != {
+                    k: v for k, v in w.raw.items() if k not in skip}:
+            raise AssertionError(f"{label}: cell {i} differs from its "
+                                 f"single-cell run")
+        if group_sizes is not None and g.raw["group_cells"] != group_sizes[i]:
+            raise AssertionError(f"{label}: cell {i} group_cells "
+                                 f"{g.raw['group_cells']}, want "
+                                 f"{group_sizes[i]}")
+
+
+def sweep_groups(cells) -> list:
+    """Each cell's group under the reference's grouping key (statics,
+    host-loop budget, plan shape), from the cells' plans: the index of
+    its group's first cell."""
+    from repro_torch.core import engine, sweep
+
+    keys = []
+    for cfg, wl in cells:
+        plan = engine.make_plan(cfg, wl)
+        keys.append((cfg.trace_statics(), sweep._budget(cfg),
+                     engine.plan_meta(cfg, plan),
+                     sweep._plan_shape_sig(engine.plan_device(cfg, plan))))
+    return [keys.index(k) for k in keys]
+
+
+def group_windows(name, group, single, device, replays: int = 16,
+                  profiled: int = 4) -> None:
+    """One group's graph against one of its cells' K = 1 graph, and
+    that cell's state in a one-cell group graph (its whole dispatch
+    guarded: the guard's cost a step), from the end of their runs with
+    every bound far ahead: span a replay (CUDA events around
+    back-to-back replays, in turns), then under torch.profiler the
+    device ms a replay (the kernel nodes' self device time) and its
+    share of the span. C independent branches that overlapped would
+    show a span under C x the cell's."""
+    from repro_torch.core import sweep
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = next(iter(group.graphs.values()))
+    one = graph_of(single)
+    guard = sweep.get_group_runner(group.cfg, group.meta, device, 1)
+    guard.load([one.p], [one.state])
+    guard = guard.cells
+    for buf in (g.r_end, one.r_end, guard.r_end):
+        buf.fill_(10**9)
+
+    def span(replay):
+        replay()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(replays):
+            replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / replays
+
+    def device_ms(replay):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(profiled):
+                replay()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if not kern:
+            raise AssertionError(f"{name}: the profiler saw no CUDA kernel")
+        return (sum(e.self_device_time_total for e in kern) / profiled / 1e3,
+                sum(e.count for e in kern) / profiled)
+
+    fns = {"group": g.replay, "cell": one.replay, "guarded": guard.replay}
+    spans = in_turns(fns, span)
+    dev = {label: device_ms(fn) for label, fn in fns.items()}
+    c = len(g.state)
+    (gs, g_ms), (cs, c_ms) = spans["group"], spans["cell"]
+    (us, u_ms) = spans["guarded"]
+    print(f"sweep {name} group of {c}: span a replay {g_ms:.4f} ms (turns "
+          f"{' / '.join(f'{x:.4f}' for x in gs)}), device "
+          f"{dev['group'][0]:.4f} ms in {dev['group'][1]:.1f} kernel nodes, "
+          f"busy {dev['group'][0] / g_ms:.4f}; one cell's K = 1 graph: span "
+          f"{c_ms:.4f} ms (turns {' / '.join(f'{x:.4f}' for x in cs)}), "
+          f"device {dev['cell'][0]:.4f} ms in {dev['cell'][1]:.1f} nodes, "
+          f"busy {dev['cell'][0] / c_ms:.4f}; group span / (C x cell span) "
+          f"{g_ms / (c * c_ms):.4f}, group device / (C x cell device) "
+          f"{dev['group'][0] / (c * dev['cell'][0]):.4f}")
+    print(f"sweep {name} the cell guarded whole (a one-cell group graph): "
+          f"span {u_ms:.4f} ms (turns {' / '.join(f'{x:.4f}' for x in us)}), "
+          f"device {dev['guarded'][0]:.4f} ms in {dev['guarded'][1]:.1f} "
+          f"nodes; the guard adds {u_ms - c_ms:+.4f} ms of span, "
+          f"{dev['guarded'][0] - dev['cell'][0]:+.4f} ms of device time and "
+          f"{dev['guarded'][1] - dev['cell'][1]:+.1f} nodes a step")
+
+
+def main_path_slice8_sweep(device) -> dict:
+    """Phase 12: the multi-cell sweep at the paper's width. Fig 13's
+    contention axis through ``run_cells`` under SERIAL_MODE and the
+    pipelined early-exit mode, each cell equal to its own
+    ``run_simulation``; the cells/s of the sweep against per-cell runs,
+    in turns; the group spans; the early-exit subset; the 17 goldens
+    twice in one call. Returns the lock_grant and dep_wavefront
+    launches of the path."""
+    import torch
+
+    from repro_torch.core import engine, sweep
+    from repro_torch.core.workloads import WorkloadConfig, make_workload
+
+    torch.cuda.reset_peak_memory_stats(device)
+    wls = {h: make_full_workload(dict(YCSB_FULL, num_hot=h))
+           for h in SWEEP_HOTS}
+    cells = [(engine.EngineConfig(**eng_kw, **SIM_K), wls[h])
+             for h in SWEEP_HOTS for _name, eng_kw in SWEEP_PROTOCOLS]
+    names = [f"fig13_h{h}_{name}" for h in SWEEP_HOTS
+             for name, _eng_kw in SWEEP_PROTOCOLS]
+    group_of = sweep_groups(cells)
+    sizes = [group_of.count(g) for g in group_of]
+    mode = sweep.SweepMode(**SWEEP_MODE_ARGS)
+    reset_launches()
+    counts = dict.fromkeys(("lock_grant", "dep_wavefront"), 0)
+
+    def count(label, fn):
+        out, wall, got = counted_run(label, fn)
+        for k, v in got.items():
+            counts[k] += v
+        return out, wall
+
+    def per_cell(cs):
+        return [engine.run_simulation(cfg, wl, device=device)
+                for cfg, wl in cs]
+
+    want, t_cold = count("fig13 per cell", lambda: per_cell(cells))
+    caps = sweep.runner_cache_info()
+    serial, t_serial = count("fig13 run_cells serial", lambda: sweep.run_cells(
+        cells, mode=sweep.SERIAL_MODE, device=device))
+    same_results("fig13 serial", serial, want, sizes)
+    groups = [(key, r) for key, r in sweep._RUNNER_CACHE.items()
+              if isinstance(r, sweep.GroupRunner)
+              and key not in caps["keys"]]
+    for key, r in groups:
+        cap = sum(g.capture_s for g in r.graphs.values())
+        print(f"sweep group: {r.cfg.protocol}, {r.n} cells, capture "
+              f"{cap:.3f} s, replays {r.replays}")
+    piped, t_piped = count("fig13 run_cells pipelined", lambda: sweep.run_cells(
+        cells, mode=mode, device=device))
+    same_results("fig13 pipelined", piped, want, sizes)
+    for name, res, size in zip(names, want, sizes):
+        print(f"sweep {name}: group of {size}, commits {res.commits}, "
+              f"steps {res.raw['steps_executed']}, simulated "
+              f"throughput_txn_s {res.throughput_txn_s}")
+    print(f"sweep fig13: {len(cells)} cells in {len(groups)} groups of "
+          f"several cells and {sizes.count(1)} alone, every "
+          f"fingerprint equal to its run_simulation (metrics and counters "
+          f"incl.) under SERIAL_MODE and {mode}; first walls: per cell "
+          f"{t_cold:.3f} s (captures incl.), serial sweep {t_serial:.3f} s "
+          f"(group captures incl.), pipelined {t_piped:.3f} s")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    turns = in_turns({
+        "per cell": lambda: count("turn per cell", lambda: per_cell(cells)),
+        "run_cells": lambda: count("turn run_cells", lambda: sweep.run_cells(
+            cells, mode=mode, device=device)),
+    }, timed)
+    (pc, pc_s), (rc, rc_s) = turns["per cell"], turns["run_cells"]
+    print(f"sweep fig13 wall, warm caches, in turns: per cell "
+          f"{' / '.join(f'{x:.3f}' for x in pc)} s = {pc_s:.3f} s "
+          f"({len(cells) / pc_s:.3f} cells/s); run_cells {mode} "
+          f"{' / '.join(f'{x:.3f}' for x in rc)} s = {rc_s:.3f} s "
+          f"({len(cells) / rc_s:.3f} cells/s); ratio {pc_s / rc_s:.4f}")
+
+    # the largest group of each engine: orthrus' (B1), dgcc's or else
+    # quecc's (B2)
+    for protos in (("orthrus",), ("dgcc", "quecc")):
+        cands = [r for p in protos for _key, r in groups
+                 if r.cfg.protocol == p]
+        if not cands:
+            raise AssertionError(f"no group of several {protos} cells")
+        group = max(cands, key=lambda r: r.n)
+        single = sweep.get_runner(group.cfg, group.meta, device)
+        group_windows(f"fig13 {group.cfg.protocol}", group, single, device)
+
+    exit_cells, exit_names = [], []
+    for proto in EXIT_PROTOCOLS:
+        eng_kw = dict(SWEEP_PROTOCOLS)[proto]
+        base = [(i, r) for i, (r, (cfg, _)) in enumerate(zip(want, cells))
+                if cfg.protocol == proto]
+        # half the median cell's measured commits: the cells of the
+        # group meet it at different boundaries
+        target = sorted(r.commits for _i, r in base)[1] // 2
+        for h in SWEEP_HOTS:
+            exit_cells.append((engine.EngineConfig(
+                **eng_kw, **dict(SIM_K, target_commits=target)), wls[h]))
+            exit_names.append(f"{proto}_h{h}_target{target}")
+    exit_group = sweep_groups(exit_cells)
+    exit_sizes = [exit_group.count(g) for g in exit_group]
+    exit_want, _ = count("exit per cell", lambda: per_cell(exit_cells))
+    for label, m in (("serial", sweep.SERIAL_MODE), ("pipelined", mode)):
+        got, wall = count(f"exit {label}", lambda m=m: sweep.run_cells(
+            exit_cells, mode=m, device=device))
+        same_results(f"exit {label}", got, exit_want, exit_sizes)
+        print(f"sweep early exit {label}: {wall:.3f} s")
+    stops = [r.raw["rounds_total"] for r in exit_want]
+    for name, stop, size in zip(exit_names, stops, exit_sizes):
+        print(f"sweep early exit {name}: group of {size}, stops at "
+              f"boundary {stop}")
+    if not any(len({b for b, g in zip(stops, exit_group) if g == first}) > 1
+               for first in set(exit_group)):
+        raise AssertionError(f"no group stops at two boundaries: {stops}")
+
+    gcells, gnames = [], []
+    for name in GOLDEN_CELLS:
+        g = json.loads((GOLDEN / f"{name}.json").read_text())
+        cfg = engine.EngineConfig(**g["engine"], **g["sim"])
+        wl = make_workload(WorkloadConfig(**g["workload"]))
+        gcells += [(cfg, wl), (cfg, wl)]
+        gnames += [name, name]
+    t0 = time.time()
+    gres, _ = count("goldens twice", lambda: sweep.run_cells(
+        gcells, mode=mode, device=device))
+    for name, res in zip(gnames, gres):
+        g = json.loads((GOLDEN / f"{name}.json").read_text())
+        got = fingerprint(res, include_metrics=name in GOLDEN_METRICS_CELLS)
+        if got != g["trace"] or res.raw["group_cells"] != 2:
+            raise AssertionError(f"golden {name} in the sweep diverged "
+                                 f"(group_cells {res.raw['group_cells']})")
+    print(f"sweep goldens: all {len(GOLDEN_CELLS)} twice in one run_cells "
+          f"call, bit-exact, groups of 2 ({time.time() - t0:.3f} s)")
+    info = sweep.runner_cache_info()
+    print(f"sweep: runner cache {info['entries']} entries, {info['hits']} "
+          f"hits, {info['misses']} misses, {info['evictions']} evictions; "
+          f"card memory max allocated "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB")
+    print(f"slice 8 sweep path: kernel launches {counts}")
+    return counts
+
+
 def kernel_ops() -> dict:
     """The five kernels' ops modules by name; each counts its launches."""
     from repro_torch.kernels.dep_wavefront import ops as dw_ops
@@ -3405,6 +3736,10 @@ def main() -> int:
                      main_path_slice7_kfused, device)
     rows[0]["launches"] += k_counts["lock_grant"]
     rows[1]["launches"] += k_counts["dep_wavefront"]
+    sweep_counts = phase("main path, slice 8: the multi-cell sweep",
+                         main_path_slice8_sweep, device)
+    rows[0]["launches"] += sweep_counts["lock_grant"]
+    rows[1]["launches"] += sweep_counts["dep_wavefront"]
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,8 @@
-"""Host loop of one simulation: the chunk runner and its cache, chunked
+"""Host loop of the simulator: the chunk runners and their cache, chunked
 round execution with the warmup snapshot and the ``target_commits``
-stop.
+stop, for one cell or a group of cells.
 
-The port of the serial path of ``repro.core.sweep``:
+The port of ``repro.core.sweep``:
 
 * :func:`get_runner` — a bounded LRU of chunk runners keyed on
   ``(cfg.trace_statics(), PlanMeta, device)``, with the reference's
@@ -22,19 +22,33 @@ The port of the serial path of ``repro.core.sweep``:
   the same graph. On the CPU, and in :func:`simulate_eager` (the oracle
   the graphs are held to), the same dispatch runs eagerly
   (:func:`run_chunk`).
-* :func:`simulate_plans` — the host loop over the ``chunk_boundaries``:
-  counters read at every boundary, warmup counters subtracted, the run
-  stopping at the first boundary where the measured commits reach
-  ``target_commits``. The results equal the reference driver's in every
-  one of its modes, which are all bit-identical to its serial loop.
+* :func:`get_group_runner` — the runner of a group of C cells, in the
+  same LRU under the key ``(statics, PlanMeta, device, C)``. Every
+  cell's whole dispatch, rebase included, is guarded by its own 0-d
+  ``r_end`` (a cell at or past its bound comes out bit-identical, as a
+  select-masked lane of the reference's vmapped loop). On CUDA the
+  group is one CUDA graph with one branch per cell (a side stream
+  forked off the capture and joined back), which ends by copying every
+  cell's ``r`` into one [C] buffer: a replay advances every cell by one
+  dispatch and the host reads one small tensor. On the CPU the same
+  dispatches run eagerly, cell after cell.
+* :func:`simulate_plans` and :func:`run_cells` — the host loop over
+  the ``chunk_boundaries`` (``_GroupRun``): counters read at every
+  boundary (one device-to-host copy for all the cells of a card),
+  warmup counters subtracted, each cell's result taken at the first
+  boundary where its measured commits reach ``target_commits``, under
+  a :class:`SweepMode` (several cards, a pipelined host loop, per-cell
+  early exit). One plan runs through :func:`get_runner`; several run
+  as one group. Every mode gives the reference's serial results.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -46,6 +60,52 @@ from repro_torch.core.engine import NCAT, EngineConfig, PlanMeta, SimResult
 
 # Engine-code version tag of the reference this port reproduces.
 ENGINE_VERSION = "4-mega-dispatch"
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepMode:
+    """How the host loop drives a group of cells (the reference's
+    fields). Every combination gives ``SERIAL_MODE``'s results.
+
+      * ``devices`` — split the group's cells into this many contiguous
+        blocks, one CUDA graph per card (clamped to the cards that
+        exist, and to 1 on the CPU).
+      * ``pipeline`` — how many replays the host keeps queued beyond
+        the one whose ``r`` it reads, and how many chunk boundaries'
+        counters may stay unread (0 = synchronous). Any depth > 0 also
+        lets :func:`run_cells` build the next group's plans and states
+        while the current group runs.
+      * ``early_exit`` — freeze a cell (bound 0) once its counters are
+        taken at ``target_commits``.
+    """
+
+    devices: int = 1
+    pipeline: int = 1
+    early_exit: bool = True
+
+
+# The reference's serial host loop: one card, every boundary read at
+# once, every cell run to the group's last boundary.
+SERIAL_MODE = SweepMode(devices=1, pipeline=0, early_exit=False)
+
+
+def sweep_mode() -> SweepMode:
+    """The environment-selected mode: ``REPRO_SWEEP_DEVICES`` (card
+    count; "auto", "0" or unset = every CUDA card), ``REPRO_SWEEP_PIPELINE``
+    (depth, default 1) and ``REPRO_SWEEP_EARLY_EXIT`` (default on)."""
+    raw = os.environ.get("REPRO_SWEEP_DEVICES", "auto").strip().lower()
+    if raw in ("", "auto", "0"):
+        devices = max(1, torch.cuda.device_count())
+    else:
+        devices = max(1, int(raw))
+    pipeline = max(0, int(os.environ.get("REPRO_SWEEP_PIPELINE", "1")))
+    early = os.environ.get("REPRO_SWEEP_EARLY_EXIT", "1").strip().lower()
+    return SweepMode(
+        devices=devices,
+        pipeline=pipeline,
+        early_exit=early not in ("0", "false", "off"),
+    )
+
 
 _SCALARS = ("commits", "aborts_dl", "aborts_ollp", "wasted", "next_txn", "steps")
 # Present only in some states; each is cumulative and reported
@@ -139,6 +199,12 @@ def _signature(d: dict) -> tuple:
     return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(d.items()))
 
 
+def _build_step(cfg: EngineConfig, meta: PlanMeta, device):
+    builder = (engine_lib.make_batch_step if cfg.is_batch_planned
+               else engine_lib.make_step)
+    return builder(cfg, meta, device)
+
+
 class _Graph:
     """One dispatch captured as a CUDA graph over static buffers: the
     plan dict, the state dict and a 0-d int32 ``r_end``. The dispatch
@@ -230,9 +296,7 @@ class ChunkRunner:
     @property
     def dispatch(self):
         if self._dispatch is None:
-            builder = (engine_lib.make_batch_step if self.cfg.is_batch_planned
-                       else engine_lib.make_step)
-            step = builder(self.cfg, self.meta, self.device)
+            step = _build_step(self.cfg, self.meta, self.device)
             self._dispatch = make_dispatch(self.cfg, step)
         return self._dispatch
 
@@ -257,6 +321,162 @@ class ChunkRunner:
         for g in self.graphs.values():
             g.graph.reset()
         self.graphs.clear()
+
+
+class _GroupGraph:
+    """The guarded dispatches of a group's C cells captured as one CUDA
+    graph over static buffers: per cell a plan dict and a state dict,
+    and one [C] int32 ``r_end`` (cell i reads element i). Cell i's
+    dispatch runs on a side stream of its own, forked off the capture
+    and joined back, so the cells are independent branches of the
+    graph; the graph ends by copying every cell's ``r`` into ``r_out``.
+    Each cell is warmed up first on scratch copies of its state (as
+    :class:`_Graph`); a replay adds to the kernels' ``launches`` what
+    the capture recorded, every branch's (C x K a replay on a kernel
+    path, the inactive branches' included)."""
+
+    def __init__(self, dispatches: list, ps: list, states: list, device):
+        t0 = time.perf_counter()
+        n = len(dispatches)
+        self.p = [{k: v.clone() for k, v in p.items()} for p in ps]
+        self.state = [{k: v.clone() for k, v in s.items()} for s in states]
+        self.r_end = torch.zeros(n, dtype=torch.int32, device=device)
+        self.r_out = torch.zeros(n, dtype=torch.int32, device=device)
+        ops = _counted_ops()
+        before = [m.launches for m in ops]
+        cur = torch.cuda.current_stream(device)
+        branches = [torch.cuda.Stream(device) for _ in range(n)]
+        side = branches[0]
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for d, p, s in zip(dispatches, self.p, self.state):
+                scratch = {k: v.clone() for k, v in s.items()}
+                for _ in range(2):
+                    scratch = d(p, scratch, scratch["r"] + 1)
+                del scratch
+        cur.wait_stream(side)
+        warm = [m.launches for m in ops]
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            cap = torch.cuda.current_stream(device)
+            for d, br, p, s, r_end in zip(dispatches, branches, self.p,
+                                          self.state, self.r_end):
+                br.wait_stream(cap)
+                with torch.cuda.stream(br):
+                    out = d(p, s, r_end)
+                    _copy_back(out, s)
+                    del out
+            for br in branches:
+                cap.wait_stream(br)
+            torch.stack([s["r"] for s in self.state], out=self.r_out)
+        self.per_replay = [(m, m.launches - w) for m, w in zip(ops, warm)]
+        for m, b in zip(ops, before):
+            m.launches = b
+        self.capture_s = time.perf_counter() - t0
+
+    def load(self, ps: list, states: list) -> None:
+        """Copy a group's plans and initial states into the buffers."""
+        for mine, theirs in zip(self.p + self.state, ps + states):
+            for k, v in mine.items():
+                v.copy_(theirs[k])
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        for m, n in self.per_replay:
+            m.launches += n
+        return self.r_out
+
+
+class _EagerCells:
+    """A group's cells advanced eagerly, one guarded dispatch each a
+    replay (the CPU's path, with :class:`_GroupGraph`'s buffers)."""
+
+    def __init__(self, dispatches: list, ps: list, states: list):
+        self.dispatches, self.p, self.state = dispatches, ps, list(states)
+        self.r_end = torch.zeros(len(ps), dtype=torch.int32,
+                                 device=states[0]["r"].device)
+
+    def replay(self) -> torch.Tensor:
+        for i, d in enumerate(self.dispatches):
+            self.state[i] = d(self.p[i], self.state[i], self.r_end[i])
+        return torch.stack([s["r"] for s in self.state])
+
+
+class GroupRunner:
+    """The runner of a group of ``n_cells`` cells of one ``(trace
+    statics, plan shape, device)`` key. Each cell has a step of its own
+    (a built step owns its kernel's output buffer) and a dispatch that
+    is guarded whole (:func:`guard_step` around :func:`make_dispatch`):
+    a cell whose ``r >= r_end`` comes out of a replay bit-identical, its
+    bound 0 freezes it. :meth:`load` enters a group's plans and initial
+    states (on CUDA into the buffers of a graph captured at the first
+    load of each shape signature), :meth:`set_bounds` sets the cells'
+    bounds, :meth:`replay` advances every cell by one dispatch and
+    returns the cells' ``r``, to be read later."""
+
+    def __init__(self, cfg: EngineConfig, meta: PlanMeta, device,
+                 n_cells: int):
+        self.cfg, self.meta, self.n = cfg, meta, n_cells
+        self.device = torch.device(device)
+        self.graphed = self.device.type == "cuda"
+        self._dispatches = None
+        self.graphs: dict[tuple, _GroupGraph] = {}
+        self.cells: _GroupGraph | _EagerCells | None = None
+        self.replays = 0
+
+    @property
+    def dispatches(self) -> list:
+        if self._dispatches is None:
+            self._dispatches = [
+                guard_step(make_dispatch(
+                    self.cfg, _build_step(self.cfg, self.meta, self.device)))
+                for _ in range(self.n)]
+        return self._dispatches
+
+    def load(self, ps: list, states: list) -> None:
+        if len(ps) != self.n or len(states) != self.n:
+            raise ValueError(f"{len(ps)} plans and {len(states)} states "
+                             f"for a runner of {self.n} cells")
+        if not self.graphed:
+            self.cells = _EagerCells(self.dispatches, ps, states)
+            return
+        sig = (_signature(ps[0]), _signature(states[0]))
+        if any((_signature(p), _signature(s)) != sig
+               for p, s in zip(ps, states)):
+            raise ValueError("a group's cells must share plan and state "
+                             "shapes")
+        g = self.graphs.get(sig)
+        if g is None:
+            with torch.cuda.device(self.device):
+                g = self.graphs[sig] = _GroupGraph(self.dispatches, ps,
+                                                   states, self.device)
+        g.load(ps, states)
+        self.cells = g
+
+    def set_bounds(self, bounds: np.ndarray) -> None:
+        self.cells.r_end.copy_(torch.from_numpy(
+            np.ascontiguousarray(bounds, dtype=np.int32)))
+
+    def replay(self) -> _Pending:
+        self.replays += 1
+        if self.graphed:
+            with torch.cuda.device(self.device):
+                return _Pending(self.cells.replay())
+        return _Pending(self.cells.replay())
+
+    def counters(self) -> _Counters:
+        return _Counters(self.cells.state)
+
+    def release(self) -> None:
+        """Drop the loaded group (a graph's buffers stay for the next)."""
+        self.cells = None
+
+    def close(self) -> None:
+        """Free the captured graphs, their memory pools and buffers."""
+        for g in self.graphs.values():
+            g.graph.reset()
+        self.graphs.clear()
+        self.cells = None
 
 
 # Bounded LRU of chunk runners (most-recently-used last).
@@ -300,28 +520,87 @@ def _device_key(device) -> torch.device:
     return dev
 
 
-def get_runner(cfg: EngineConfig, meta: PlanMeta, device) -> ChunkRunner:
-    """The cached :class:`ChunkRunner` for this (config statics, plan
-    shape, device) key; a miss makes one (its step is built, and on CUDA
-    its graph captured, at its first call)."""
-    dev = _device_key(device)
-    key = (cfg.trace_statics(), meta, dev)
+def _cached(key: tuple, make):
     runner = _RUNNER_CACHE.get(key)
     if runner is not None:
         _RUNNER_CACHE.move_to_end(key)
         _RUNNER_CACHE_STATS["hits"] += 1
         return runner
     _RUNNER_CACHE_STATS["misses"] += 1
-    runner = _RUNNER_CACHE[key] = ChunkRunner(cfg, meta, dev)
+    runner = _RUNNER_CACHE[key] = make()
     _evict_to(_RUNNER_CACHE_CAPACITY)
     return runner
 
 
-def read_counters(state: dict) -> dict[str, np.ndarray]:
-    """Device -> host copy of the small counters."""
+def get_runner(cfg: EngineConfig, meta: PlanMeta, device) -> ChunkRunner:
+    """The cached :class:`ChunkRunner` for this (config statics, plan
+    shape, device) key; a miss makes one (its step is built, and on CUDA
+    its graph captured, at its first call)."""
+    dev = _device_key(device)
+    return _cached((cfg.trace_statics(), meta, dev),
+                   lambda: ChunkRunner(cfg, meta, dev))
+
+
+def get_group_runner(cfg: EngineConfig, meta: PlanMeta, device,
+                     n_cells: int) -> GroupRunner:
+    """The cached :class:`GroupRunner` of ``n_cells`` cells for this
+    (config statics, plan shape, device) key: the reference's batched
+    runner key with ``batched`` replaced by the cell count."""
+    dev = _device_key(device)
+    return _cached((cfg.trace_statics(), meta, dev, n_cells),
+                   lambda: GroupRunner(cfg, meta, dev, n_cells))
+
+
+class _Pending:
+    """A device -> host copy issued on the stream now and read later
+    (:meth:`get` waits for it); on the CPU the tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host = t
+
+    def get(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _counter_layout(state: dict) -> list[tuple[str, tuple]]:
     keys = _SCALARS + ("cat",) + _METRIC_ARRAYS + tuple(
         k for k in _OPT_SCALARS if k in state)
-    return {k: state[k].cpu().numpy().astype(np.int64) for k in keys}
+    return [(k, tuple(state[k].shape)) for k in keys]
+
+
+class _Counters:
+    """The small counters of some cells' states, packed into one tensor
+    on the device (a copy: later dispatches leave it be) and copied to
+    the host in one copy. :meth:`get` gives one dict of int64 arrays per
+    cell."""
+
+    def __init__(self, states: list):
+        self.layout = _counter_layout(states[0])
+        self.n = len(states)
+        self.copy = _Pending(torch.cat(
+            [s[k].reshape(-1).to(torch.int32)
+             for s in states for k, _ in self.layout]))
+
+    def get(self) -> list[dict[str, np.ndarray]]:
+        flat = self.copy.get().astype(np.int64)
+        out, at = [], 0
+        for _ in range(self.n):
+            cell = {}
+            for k, shape in self.layout:
+                size = int(np.prod(shape, dtype=np.int64))
+                cell[k] = flat[at:at + size].reshape(shape)
+                at += size
+            out.append(cell)
+        return out
 
 
 def _zeros_like_counters() -> dict[str, np.ndarray]:
@@ -330,7 +609,8 @@ def _zeros_like_counters() -> dict[str, np.ndarray]:
     return out
 
 
-def _result(cfg, plan, snap, wsnap, ri, wri, wall) -> SimResult:
+def _result(cfg, plan, snap, wsnap, ri, wri, wall,
+            group_cells: int) -> SimResult:
     """Assemble the :class:`SimResult` of one cell (the reference's
     ``_GroupRun.finish``)."""
     cm = cfg.cost
@@ -392,7 +672,7 @@ def _result(cfg, plan, snap, wsnap, ri, wri, wall) -> SimResult:
             rounds_total=ri,
             steps_executed=int(snap["steps"]),
             wall_s_group=round(wall, 3),
-            group_cells=1,
+            group_cells=group_cells,
             engine_version=ENGINE_VERSION,
             **{k: delta(k) for k in _OPT_SCALARS if k in snap},
         ),
@@ -400,27 +680,253 @@ def _result(cfg, plan, snap, wsnap, ri, wri, wall) -> SimResult:
     )
 
 
+def _initial_state(cfg: EngineConfig, plan, meta: PlanMeta, dev) -> dict:
+    if cfg.is_batch_planned:
+        return engine_lib._batch_state0(cfg, plan, cfg.n_slots, dev)
+    return engine_lib._state0(cfg, plan.num_records, cfg.n_slots,
+                              meta.max_keys, dev)
+
+
+def _budget(cfg: EngineConfig) -> tuple:
+    return (cfg.max_rounds, cfg.warmup_rounds, cfg.chunk_rounds,
+            cfg.target_commits)
+
+
+class _GroupRun:
+    """One group of cells driven to completion: the chunk-boundary
+    schedule, the queue of boundaries whose counters are not read yet,
+    and each cell's warmup and ``target_commits`` snapshots. Cells may
+    differ in traced values (plans, epoch rates, policy parameters) and
+    in their ``EngineConfig``s, as long as every config shares
+    ``trace_statics()``, the host-loop budget and the plan shapes.
+
+    One cell runs through ``run`` (its chunk runner; by default the
+    cached :func:`get_runner`), which returns the state at each bound;
+    its counters are read at every boundary. Several run as blocks of
+    contiguous cells, one :class:`GroupRunner` per card: a chunk sets
+    each cell's bound (the boundary, or 0 once an early-exited cell is
+    frozen) and replays until no cell is below its bound, keeping up to
+    ``mode.pipeline`` replays queued beyond the one whose ``r`` it
+    reads. A replay queued past the chunk's end is inactive in every
+    cell, so the state at the boundary stays as it was.
+    """
+
+    def __init__(self, cfgs: list, plans: list, mode: SweepMode, device,
+                 ps: list | None = None, run=None):
+        n = len(plans)
+        if n == 0 or n != len(cfgs):
+            raise ValueError(f"{len(cfgs)} configs for {n} plans")
+        for c in cfgs:
+            engine_lib.check_ported(c)
+        if len({c.trace_statics() for c in cfgs}) != 1:
+            raise ValueError("grouped cells must share trace statics")
+        if len({_budget(c) for c in cfgs}) != 1:
+            raise ValueError("grouped cells must share the host-loop budget")
+        metas = {engine_lib.plan_meta(c, pl) for c, pl in zip(cfgs, plans)}
+        if len(metas) != 1:
+            raise ValueError(f"plans must share shapes, got {metas}")
+        self.meta = next(iter(metas))
+        self.cfgs, self.plans, self.mode, self.n = cfgs, plans, mode, n
+        self.device = _device_key(device)
+        self.ps, self.run = ps, run
+        self.cells = None  # one cell: (p, state); several: the blocks
+
+        self.live = np.ones(n, dtype=bool)
+        self.warm = [_zeros_like_counters()] * n
+        self.warm_rounds = 0
+        self.snaps: list[tuple | None] = [None] * n
+        self.final: list | None = None
+        self.rounds_done = 0
+        self.boundaries = chunk_boundaries(cfgs[0])
+        self.pending: deque = deque()
+        self.stopped = False
+        self.exhausted = False
+        self.t0: float | None = None
+        self.wall = 0.0
+        self.hook = None
+
+    def _blocks(self) -> list[tuple[np.ndarray, torch.device]]:
+        """Contiguous blocks of cells, one per card of ``mode.devices``
+        (clamped to the cards there are and to the cell count)."""
+        dev = self.device
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+        d = max(1, min(self.mode.devices, cards, self.n))
+        idxs = np.array_split(np.arange(self.n), d)
+        if d == 1:
+            return [(idxs[0], dev)]
+        return [(ix, torch.device("cuda", (dev.index + j) % cards))
+                for j, ix in enumerate(idxs)]
+
+    def prepare(self) -> None:
+        """Plan tensors and initial states of every cell, on its block's
+        device (:func:`run_cells` calls this on the next group while the
+        current one runs)."""
+        if self.cells is not None:
+            return
+        if self.ps is None:
+            self.ps = [engine_lib.plan_device(c, pl)
+                       for c, pl in zip(self.cfgs, self.plans)]
+        if self.n == 1:
+            self.cells = (
+                plan_from_numpy(self.ps[0], self.device),
+                _initial_state(self.cfgs[0], self.plans[0], self.meta,
+                               self.device))
+            return
+        self.cells = [
+            (ix, dev,
+             [plan_from_numpy(self.ps[i], dev) for i in ix],
+             [_initial_state(self.cfgs[i], self.plans[i], self.meta, dev)
+              for i in ix])
+            for ix, dev in self._blocks()]
+
+    def start(self) -> None:
+        """Enter the cells into their runners (capturing on a miss) and
+        run the first chunk."""
+        if self.t0 is not None:
+            return
+        self.prepare()
+        self.t0 = time.time()
+        if self.n == 1:
+            if self.run is None:
+                self.run = get_runner(self.cfgs[0], self.meta, self.device)
+        else:
+            blocks = []
+            for ix, dev, ps, states in self.cells:
+                runner = get_group_runner(self.cfgs[0], self.meta, dev,
+                                          len(ix))
+                runner.load(ps, states)
+                blocks.append((ix, runner))
+            self.cells = blocks
+        self._dispatch_one()
+
+    def _fire_hook(self) -> None:
+        if self.hook is not None:
+            hook, self.hook = self.hook, None
+            hook()
+
+    def _counters(self) -> list[_Counters]:
+        if self.n == 1:
+            return [_Counters([self.cells[1]])]
+        return [runner.counters() for _ix, runner in self.cells]
+
+    def _dispatch_one(self) -> bool:
+        if self.exhausted:
+            return False
+        b = next(self.boundaries, None)
+        if b is None:
+            self.exhausted = True
+            return False
+        if self.n == 1:
+            p, state = self.cells
+            self.cells = (p, self.run(p, state, b))
+            self._fire_hook()
+        else:
+            active = self.live if self.mode.early_exit else np.ones(
+                self.n, dtype=bool)
+            self._run_chunk(np.where(active, b, 0).astype(np.int32))
+        self.pending.append((b, self._counters()))
+        return True
+
+    def _run_chunk(self, bounds: np.ndarray) -> None:
+        """Replay every block until no cell is below its bound."""
+        for ix, runner in self.cells:
+            runner.set_bounds(bounds[ix])
+        depth = max(0, self.mode.pipeline)
+        queue: deque = deque()
+        while True:
+            while len(queue) <= depth:
+                queue.append([runner.replay() for _ix, runner in self.cells])
+                self._fire_hook()
+            r = np.concatenate([c.get() for c in queue.popleft()])
+            if (r >= bounds).all():
+                return
+
+    def _resolve_one(self) -> None:
+        b, counters = self.pending.popleft()
+        host = [cell for c in counters for cell in c.get()]
+        self.rounds_done = b
+        self.final = host
+        if b <= self.cfgs[0].warmup_rounds:
+            self.warm = host
+            self.warm_rounds = b
+        for i in range(self.n):
+            if self.snaps[i] is None and (
+                host[i]["commits"] - self.warm[i]["commits"]
+                >= self.cfgs[i].target_commits
+            ):
+                self.snaps[i] = (host[i], self.warm[i], b, self.warm_rounds)
+                self.live[i] = False
+        if all(sn is not None for sn in self.snaps):
+            self.stopped = True
+
+    def drive(self, prefetch=None) -> None:
+        """Run the host loop to completion. Up to ``mode.pipeline`` chunk
+        boundaries stay unread (one cell: none, its runner is
+        synchronous); ``prefetch`` (the next group's :meth:`prepare`)
+        runs once this group's first replays are queued. Chunks run past
+        the stopping boundary are discarded unread: their cells' results
+        were taken at earlier boundaries."""
+        self.hook = prefetch
+        self.start()
+        depth = max(0, self.mode.pipeline) if self.n > 1 else 0
+        while not self.stopped and not self.exhausted:
+            while len(self.pending) > depth and not self.stopped:
+                self._resolve_one()
+            if not self.stopped:
+                self._dispatch_one()
+        while self.pending and not self.stopped:
+            self._resolve_one()
+        self.pending.clear()
+        self._fire_hook()
+        devices = {self.device} if self.n == 1 else {
+            runner.device for _ix, runner in self.cells}
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        self.wall = time.time() - self.t0
+
+    def finish(self, time_sink: dict | None = None) -> list[SimResult]:
+        """Each cell's :class:`SimResult` (its own config drives its cost
+        and arrival accounting); the group's buffers are dropped."""
+        if self.final is None:
+            self.final = [cell for c in self._counters() for cell in c.get()]
+        if time_sink is not None:
+            time_sink["wall_s"] = self.wall
+            time_sink["group_cells"] = self.n
+        results = []
+        for i in range(self.n):
+            snap, wsnap, ri, wri = self.snaps[i] or (
+                self.final[i], self.warm[i], self.rounds_done,
+                self.warm_rounds)
+            results.append(_result(self.cfgs[i], self.plans[i], snap, wsnap,
+                                   ri, wri, self.wall, self.n))
+        if self.n > 1:
+            for _ix, runner in self.cells:
+                runner.release()
+        self.cells = None
+        return results
+
+
 def simulate_plans(
     cfg: EngineConfig,
     plans: list,
     *,
     device: torch.device | str | None = None,
+    mode: SweepMode | None = None,
+    time_sink: dict | None = None,
 ) -> list[SimResult]:
-    """Run the simulation of one plan on ``device`` (CUDA by default)
-    through its cached chunk runner (graph replays on CUDA).
-
-    The reference accepts several same-shape plans and drives them as one
-    vmapped group; this slice runs exactly one.
-    """
-    engine_lib.check_ported(cfg)
-    if len(plans) != 1:
-        raise NotImplementedError(
-            "more than one plan per call (the multi-cell sweep) is not "
-            "ported yet (slice 8)"
-        )
+    """Run one simulation per plan on ``device`` (CUDA by default). All
+    plans must share a :class:`PlanMeta`; one plan runs through its
+    cached chunk runner, several as one group (:func:`get_group_runner`)
+    under ``mode`` (default :func:`sweep_mode`). Each cell's counters are
+    taken at the boundary where it meets ``target_commits``, so every
+    mode gives the same results as one run per plan."""
+    if mode is None:
+        mode = sweep_mode()
     dev = engine_lib.resolve_device(device)
-    meta = engine_lib.plan_meta(cfg, plans[0])
-    return [_host_loop(cfg, plans[0], meta, dev, get_runner(cfg, meta, dev))]
+    run = _GroupRun([cfg] * len(plans), plans, mode, dev)
+    run.drive()
+    return run.finish(time_sink)
 
 
 def simulate_eager(
@@ -436,37 +942,65 @@ def simulate_eager(
     dev = engine_lib.resolve_device(device)
     meta = engine_lib.plan_meta(cfg, plan)
     dispatch = ChunkRunner(cfg, meta, dev).dispatch
-    return _host_loop(cfg, plan, meta, dev,
-                      functools.partial(run_chunk, dispatch))
+    run = _GroupRun([cfg], [plan], SERIAL_MODE, dev,
+                    run=functools.partial(run_chunk, dispatch))
+    run.drive()
+    return run.finish()[0]
 
 
-def _host_loop(cfg: EngineConfig, plan, meta: PlanMeta, dev: torch.device,
-               run) -> SimResult:
-    """``run(p, state, r_end)`` advances the state chunk by chunk."""
-    p = plan_from_numpy(engine_lib.plan_device(cfg, plan), dev)
-    if cfg.is_batch_planned:
-        state = engine_lib._batch_state0(cfg, plan, cfg.n_slots, dev)
-    else:
-        state = engine_lib._state0(
-            cfg, plan.num_records, cfg.n_slots, meta.max_keys, dev
-        )
+def _plan_shape_sig(p: dict) -> tuple:
+    return tuple(
+        sorted((k, tuple(np.shape(v)), str(np.asarray(v).dtype))
+               for k, v in p.items())
+    )
 
-    t0 = time.time()
-    warm, warm_rounds = _zeros_like_counters(), 0
-    final, rounds_done, stop = None, 0, None
-    for b in chunk_boundaries(cfg):
-        state = run(p, state, b)
-        host = read_counters(state)
-        rounds_done, final = b, host
-        if b <= cfg.warmup_rounds:
-            warm, warm_rounds = host, b
-        if host["commits"] - warm["commits"] >= cfg.target_commits:
-            stop = (host, warm, b, warm_rounds)
-            break
-    if final is None:
-        final = read_counters(state)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    wall = time.time() - t0
-    snap, wsnap, ri, wri = stop or (final, warm, rounds_done, warm_rounds)
-    return _result(cfg, plan, snap, wsnap, ri, wri, wall)
+
+def run_cells(
+    cells: list,
+    mode: SweepMode | None = None,
+    *,
+    device: torch.device | str | None = None,
+) -> list[SimResult]:
+    """Simulate many ``(EngineConfig, Workload)`` cells on ``device``
+    (CUDA by default). Cells are planned and grouped by the reference's
+    key (shared ``trace_statics()``, host-loop budget, ``PlanMeta`` and
+    plan shapes; configs may differ in traced values such as epoch rates
+    or policy parameters), and each group runs as one simulation under
+    ``mode`` (default :func:`sweep_mode`). Results come back in input
+    order, equal to :func:`engine.run_simulation` per cell."""
+    if mode is None:
+        mode = sweep_mode()
+    dev = engine_lib.resolve_device(device)
+    plans = [engine_lib.make_plan(cfg, wl) for cfg, wl in cells]
+    ps = [engine_lib.plan_device(cfg, pl)
+          for (cfg, _wl), pl in zip(cells, plans)]
+    groups: dict = {}
+    for idx, ((cfg, _wl), plan, p) in enumerate(zip(cells, plans, ps)):
+        key = (cfg.trace_statics(), _budget(cfg),
+               engine_lib.plan_meta(cfg, plan), _plan_shape_sig(p))
+        groups.setdefault(key, []).append(idx)
+
+    order = list(groups.values())
+    runs: list[_GroupRun | None] = [None] * len(order)
+
+    def ensure(gi: int) -> _GroupRun:
+        if runs[gi] is None:
+            idxs = order[gi]
+            runs[gi] = _GroupRun([cells[i][0] for i in idxs],
+                                 [plans[i] for i in idxs], mode, dev,
+                                 ps=[ps[i] for i in idxs])
+        return runs[gi]
+
+    out: list = [None] * len(cells)
+    for gi, idxs in enumerate(order):
+        g = ensure(gi)
+        prefetch = None
+        if mode.pipeline > 0 and gi + 1 < len(order):
+            # build the next group's plans and states on the card while
+            # this group runs
+            prefetch = lambda j=gi + 1: ensure(j).prepare()  # noqa: E731
+        g.drive(prefetch)
+        for idx, res in zip(idxs, g.finish()):
+            out[idx] = res
+        runs[gi] = None  # release the group's buffers promptly
+    return out

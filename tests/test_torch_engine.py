@@ -477,11 +477,21 @@ def test_formerly_unported_paths_match_reference(kw):
 
 
 def test_one_plan_per_call():
-    wl, _ = _workloads(YCSB)
+    """Several plans in one call run as one group: each equals its own
+    single-plan run, apart from ``group_cells`` and the wall."""
     cfg = engine.EngineConfig(**DF, **SIM)
-    plan = engine.make_plan(cfg, wl)
-    with pytest.raises(NotImplementedError, match=r"slice \d"):
-        sweep.simulate_plans(cfg, [plan, plan], device="cpu")
+    plans = [engine.make_plan(cfg, _workloads(dict(YCSB, seed=seed))[0])
+             for seed in (1, 2)]
+    both = sweep.simulate_plans(cfg, plans, device="cpu")
+    for got, plan in zip(both, plans):
+        want = sweep.simulate_plans(cfg, [plan], device="cpu")[0]
+        assert (got.raw["group_cells"], want.raw["group_cells"]) == (2, 1)
+        assert fingerprint(got, include_metrics=True) == fingerprint(
+            want, include_metrics=True)
+        skip = ("group_cells", "wall_s_group")
+        assert {k: v for k, v in got.raw.items() if k not in skip} == {
+            k: v for k, v in want.raw.items() if k not in skip}
+    assert fingerprint(both[0]) != fingerprint(both[1])
 
 
 def test_default_device_is_cuda():
