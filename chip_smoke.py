@@ -174,6 +174,30 @@ Phases (each raises on failure; the script then exits non-zero):
                distinct stops in one group required; the 17 goldens twice
                in one call, bit-exact; the runner cache and the card's
                peak memory.
+ 13. main path, slice 9: the other archs' serving — stablelm-1.6b,
+               starcoder2-3b, qwen3-32b, hymba-1.5b (its Mamba head
+               beside swa attention), whisper-tiny (its encoder over
+               1,500 random frames and cross-attention) and
+               llama-3.2-vision-11b (its gated cross-attention layers
+               over 1,024 random vision embeddings, the gates set to
+               CROSS_GATE_OPEN on both paths), each at its published
+               width with random weights from SEED, one at a time on a
+               card the earlier models have left, through
+               ``ServingEngine.run(requests, extras)`` (SLICE9_CELLS: 8
+               slots of 4,096, 16 new tokens a request) on the kernel
+               path and on the plain path: flash_attention launches
+               once per self-attention layer of every prefill (the
+               encoder's included) and never on the plain path; each
+               request's first token the argmax of its prefill's logits;
+               first-token logits held to FIRST_LOGIT_TOL (hymba's to
+               SLICE9_LOGIT_TOL, beside the same check in float32) and
+               printed beside how far they move when only B4's outputs
+               move by one bf16 unit; tokens/s, prefill ms per request
+               and decode ms per step. At qwen3-32b's and hymba-1.5b's
+               new shapes B4 is held to its plain version on every layer
+               of a real prefill and timed in turns at layer 0 beside
+               its plain version, SDPA and the bound; the device busy
+               share of both on the kernel path.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -212,6 +236,9 @@ layers' sorted expert ids and on random sorted ids with a -1 tail (N =
 around the sorted form and the plain plan, and counts the CUDA kernels
 of a plan on each.
 
+The serving profiles read the device time from the profiler's raw events
+(``device_activity``), which sum to what ``key_averages()`` sums.
+
 Each path sets the kernels' launch counts to 0 just before it and reads
 them just after. Then it prints the kernels' JSON line, the card's name
 and power limit, and, last, ``{"ok": true, "device": {...}}``. It needs
@@ -222,6 +249,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -324,6 +352,42 @@ MIXTRAL_SECOND_SEED = SEED + 1
 # random weights most tokens lean to the same experts, and near-ties
 # that a bf16 rounding flips leave about 95% alike
 MIXTRAL_MIN_AGREEMENT = 0.9
+# slice 9 (phase 13): the other archs' serving, each at its published
+# width (random weights and extras from SEED) with phase 6's slots and
+# cache; 16 new tokens a request. Per cell: arch, requests, prompt
+# lengths, plain-path requests. stablelm, starcoder2, qwen3 and
+# llama-3.2-vision take phase 6's 16 prompts; hymba 4 of 1,100-1,400
+# tokens (past its 1,024 window), since its Mamba head's loop over time
+# issues three kernels a token a layer on both paths (a cut in requests,
+# not in width); whisper 16 of 16-400 tokens, inside the real model's
+# 448 positions
+SLICE9_NEW_TOKENS = 16
+SLICE9_CELLS = (
+    ("stablelm-1.6b", 16, SERVE_PROMPT_LENS, 4),
+    ("starcoder2-3b", 16, SERVE_PROMPT_LENS, 4),
+    ("qwen3-32b", 16, SERVE_PROMPT_LENS, 4),
+    ("hymba-1.5b", 4, (1100, 1400), 2),
+    ("whisper-tiny", 16, (16, 400), 4),
+    ("llama-3.2-vision-11b", 16, SERVE_PROMPT_LENS, 4),
+)
+# llama-3.2-vision's tanh gates start at 0 (the cross layers add exactly
+# 0), so both paths open them
+CROSS_GATE_OPEN = 1.0
+# first-token logits, kernel vs plain path: FIRST_LOGIT_TOL but where
+# named here. hymba's bf16 forward gathers rounding noise layer on layer
+# (about 1% of the residual a layer, a quarter of it by layer 32): its two
+# bf16 paths differ by 0.81-1.30, each is 0.78-0.87 from the f32 forward,
+# and moving only B4's outputs by one bf16 unit moves the logits by
+# 0.65-0.98 (two runs on an H100). So 2.0, twice the largest of those
+# moves; and the same check in float32, where the paths agree to 1e-4,
+# held to SLICE9_F32_TOL
+SLICE9_LOGIT_TOL = {"hymba-1.5b": 2.0}
+SLICE9_F32_TOL = 1e-3
+# B4 held at every layer, and timed at layer 0, of a real prefill of this
+# many tokens: d 128 at 8 query heads a KV head, d 64 at an odd 5
+SLICE9_READINGS = {"qwen3-32b": 3000, "hymba-1.5b": 1400}
+# the kernel path's device busy share, over its first this many requests
+SLICE9_PROFILED = {"qwen3-32b": 4, "hymba-1.5b": 1}
 # slice 7: fig4's widest cells (benchmarks/figures.py:55-63: 80 lanes,
 # 64 hot) for the three dynamic-2PL schemes, and fig6's dual-partition
 # cell of the partitioned store (:157-170)
@@ -1281,16 +1345,8 @@ def check_flash_attention(device, model, mixtral_attn) -> dict:
 
     def check(label, q, k, v, kind, window):
         """Largest |kernel - plain| and its ratio to the tolerance."""
-        got = ops.flash_attention_cuda(q, k, v, kind=kind, window=window)
-        torch.cuda.synchronize()
-        want = flash_attention_ref(q, k, v, kind=kind, window=window).float()
-        diff = (got.float() - want).abs()
-        if q.dtype == torch.bfloat16:
-            tol = torch.clamp(bf16_ulp(want), min=FA_TOL["bfloat16"])
-        else:
-            tol = FA_TOL["float32"]
-        err, ratio = float(diff.max()), float((diff / tol).max())
-        if not (ratio <= 1 and bool(torch.isfinite(got).all())):
+        err, ratio, finite = flash_attention_error(q, k, v, kind, window)
+        if not (ratio <= 1 and finite):
             failed.append(f"{label} {kind} {window} {q.dtype}: {err}")
         worst[0] = max(worst[0], err)
         return err, ratio
@@ -3048,19 +3104,20 @@ def main_path_slice2(device) -> int:
 
 
 
-def serve_requests(cfg, seed=SEED):
-    """The serving phase's requests: prompt lengths and tokens from
-    ``seed``."""
+def serve_requests(cfg, seed=SEED, n=SERVE_REQUESTS, lens=SERVE_PROMPT_LENS,
+                   new_tokens=SERVE_NEW_TOKENS):
+    """A serving phase's requests: ``n`` prompt lengths in ``lens`` and
+    their tokens from ``seed`` (phase 6's by default)."""
     import numpy as np
 
     from repro_torch.serve import Request
 
     rng = np.random.default_rng(seed)
-    lo, hi = SERVE_PROMPT_LENS
-    lens = rng.integers(lo, hi + 1, SERVE_REQUESTS)
-    return [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, n).astype(
-                np.int32), max_new_tokens=SERVE_NEW_TOKENS)
-            for i, n in enumerate(lens)]
+    lo, hi = lens
+    lengths = rng.integers(lo, hi + 1, n)
+    return [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, k).astype(
+                np.int32), max_new_tokens=new_tokens)
+            for i, k in enumerate(lengths)]
 
 
 def serve_run(model, device, kernel_impl, n_requests=SERVE_REQUESTS):
@@ -3307,48 +3364,69 @@ def mixtral_first_token_logits(model, device, outputs, tol=FIRST_LOGIT_TOL,
         report(acc)
 
 
-def profile_serving(model, device, wall_s, kernels, kernel_impl="auto",
-                    n_requests=SERVE_REQUESTS) -> None:
-    """One path's serving run again under torch.profiler (CUDA activity
-    only: about 210,000 kernels for gemma3-1b): CUDA kernels, device
-    seconds, each of ``kernels``' share of them, and the device busy
-    share against the unprofiled run's wall time."""
+def device_activity(prof) -> dict:
+    """{name: [count, device s]} over a trace's device activities
+    (kernels, copies, memsets), summed from the profiler's raw events:
+    the CUDA rows of ``key_averages()`` without building its event tree,
+    which takes about 150 us an event on the card's host (30 s for a
+    gemma3-1b serving run)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        row = out.setdefault(e.name(), [0, 0.0])
+        row[0] += 1
+        row[1] += e.duration_ns() / 1e9
+    return out
+
+
+def profile_share(label, run, wall_s, kernels=()) -> None:
+    """``run()`` (which returns its own wall s) under torch.profiler, CUDA
+    activity only: CUDA kernels, device seconds, each of ``kernels``'
+    share of them, and the device busy share against ``wall_s``, the
+    wall time of the same work unprofiled."""
     import re
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _eng, _done, prof_wall = serve_run(model, device, kernel_impl,
-                                           n_requests)
+        prof_wall = run()
     t0 = time.time()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    name = model[0].name
-    path = "kernel path" if kernel_impl == "auto" else "plain path"
-    print(f"profile {name} serving, {path}: the trace read in "
-          f"{time.time() - t0:.3f} s")
-    n_kernels = sum(e.count for e in kern)
-    dev_s = sum(e.self_device_time_total for e in kern) / 1e6
+    kern = device_activity(prof)
+    print(f"profile {label}: the trace read in {time.time() - t0:.3f} s")
+    n_kernels = sum(c for c, _s in kern.values())
+    dev_s = sum(sec for _c, sec in kern.values())
     # B4's bf16 kernel is flash_attention_tc_kernel, B5's
     # rwkv6_scan_tile_kernel, B3's moe_dispatch_plan_kernel
-    mine = {k: [e for e in kern if re.search(rf"{k}(_tc|_tile|_plan)?_kernel",
-                                             e.key)] for k in kernels}
-    k_s = {k: sum(e.self_device_time_total for e in es) / 1e6
-           for k, es in mine.items()}
+    mine = {k: {n: v for n, v in kern.items()
+                if re.search(rf"{k}(_tc|_tile|_plan)?_kernel", n)}
+            for k in kernels}
+    k_s = {k: sum(sec for _c, sec in v.values()) for k, v in mine.items()}
     if n_kernels <= 0 or not all(k_s.values()):
         raise AssertionError(f"the profiler saw no CUDA kernel or not each "
                              f"of {kernels}: {k_s}")
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"profile {name} serving, {path}: {n_kernels} CUDA "
-          f"kernels, device {dev_s:.4f} s against {wall_s:.4f} s wall "
-          f"unprofiled ({prof_wall:.4f} s under the profiler): device busy "
-          f"share {dev_s / wall_s:.4f}; "
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"profile {label}: {n_kernels} CUDA kernels, device {dev_s:.4f} s "
+          f"against {wall_s:.4f} s wall unprofiled ({prof_wall:.4f} s under "
+          f"the profiler): device busy share {dev_s / wall_s:.4f}; "
           + ", ".join(f"{k} {t:.4f} s ({t / dev_s:.4f} of device time; "
-                      f"{sorted({e.key[:60] for e in mine[k]})})"
+                      f"{sorted({n[:60] for n in mine[k]})})"
                       for k, t in k_s.items())
           + "; top kernels: "
-          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
-                      for e in top))
+          + "; ".join(f"{n[:60]} {sec * 1e3:.1f} ms" for n, (_c, sec) in top))
+
+
+def profile_serving(model, device, wall_s, kernels, kernel_impl="auto",
+                    n_requests=SERVE_REQUESTS) -> None:
+    """One path's serving run again under torch.profiler (about 210,000
+    kernels for gemma3-1b): ``profile_share``'s readings against the
+    unprofiled run's wall time."""
+    path = "kernel path" if kernel_impl == "auto" else "plain path"
+    profile_share(f"{model[0].name} serving, {path}",
+                  lambda: serve_run(model, device, kernel_impl,
+                                    n_requests)[2], wall_s, kernels)
 
 
 def serve_both_paths(model, device, want, n_plain, logit_tol,
@@ -3528,6 +3606,323 @@ def main_path_slice5(device, model) -> dict:
         profile_plain=True, turns=True)
 
 
+def flash_attention_error(q, k, v, kind, window) -> tuple:
+    """B4 against its plain version on one call: (max |difference|, its
+    largest ratio to the tolerance, whether B4's output is finite). The
+    tolerance: FA_TOL, and in bf16 also one unit in the output's last
+    place."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    got = ops.flash_attention_cuda(q, k, v, kind=kind, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, kind=kind, window=window).float()
+    diff = (got.float() - want).abs()
+    if q.dtype == torch.bfloat16:
+        tol = torch.clamp(bf16_ulp(want), min=FA_TOL["bfloat16"])
+    else:
+        tol = FA_TOL["float32"]
+    return (float(diff.max()), float((diff / tol).max()),
+            bool(torch.isfinite(got).all()))
+
+
+def attention_reading(label, q, k, v, kind, window) -> None:
+    """Phase 2's reading at a new shape: B4 held to its plain version,
+    then device ms in turns (each timed twice, the order reversed the
+    second time) of the kernel, the plain version and
+    F.scaled_dot_product_attention, beside the bound."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    err, ratio, finite = flash_attention_error(q, k, v, kind, window)
+    if not (ratio <= 1 and finite):
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {label}: {err}")
+    lib, how = sdpa_call(q, k, v, kind, window)
+    fns = {"kernel": lambda: ops.flash_attention_cuda(
+               q, k, v, kind=kind, window=window),
+           "plain": lambda: flash_attention_ref(q, k, v, kind=kind,
+                                                window=window),
+           f"SDPA ({how})": lib}
+    turns = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            turns[name].append(graph_ms(fns[name], repeats=10, samples=11))
+    ms = {name: sum(t) / len(t) for name, t in turns.items()}
+    bound_ms, bound_by = attention_bound(q, k, kind, window)
+    print(f"flash_attention at {label} ({kind} window {window}, q "
+          f"{tuple(q.shape)}, k {tuple(k.shape)}: {q.shape[2] // k.shape[2]} "
+          f"query heads per KV head of {q.shape[3]}, {q.dtype}): max_abs_err "
+          f"{err} vs plain, {ratio} of the tolerance; in turns "
+          + "; ".join(f"{name} {t[0]:.6f} / {t[1]:.6f} ms"
+                      for name, t in turns.items())
+          + f"; bound {bound_ms:.6f} ms ({bound_by}); the kernel at "
+          f"{bound_ms / ms['kernel']:.4f} of its bound, "
+          f"{ms['kernel'] / ms[f'SDPA ({how})']:.3f}x SDPA, "
+          f"{ms['plain'] / ms['kernel']:.2f}x faster than plain (kernels of "
+          f"SDPA: {cuda_kernel_names(lib)})")
+
+
+def slice9_run(model, device, impl, reqs, extras) -> dict:
+    """One serving run of ``reqs`` with ``extras``, the launch counts set
+    to 0 just before it and read just after, and each prefill's
+    first-token logits kept: {stats, outputs, first (by rid), wall,
+    launches}. The engine (and its cache) is dropped before returning."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeConfig, ServingEngine
+
+    cfg, params = model
+    first = []
+    original = M.prefill
+
+    def recording(*args, **kw):
+        out = original(*args, **kw)
+        first.append(out[0][0, -1])
+        return out
+
+    eng = ServingEngine(cfg, ServeConfig(batch_slots=SERVE_SLOTS,
+                                         cache_len=SERVE_CACHE_LEN),
+                        params, device=device, kernel_impl=impl)
+    torch.cuda.synchronize()
+    reset_launches()
+    M.prefill = recording
+    try:
+        t0 = time.perf_counter()
+        done = eng.run(reqs, extras)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        M.prefill = original
+    launches = {k: m.launches for k, m in kernel_ops().items()}
+    stats = eng.stats
+    del eng
+    if len(first) != len(reqs):
+        raise AssertionError(f"{len(first)} prefills for {len(reqs)} "
+                             f"requests")
+    # all requests fit, so the planner admits them in submission order
+    return dict(stats=stats, outputs={r.rid: r.output for r in done},
+                first={r.rid: lg.float() for r, lg in zip(reqs, first)},
+                wall=wall, launches=launches, n=len(reqs),
+                done=len(done), tokens=sum(len(r.output) for r in done),
+                prompt=sum(len(r.prompt) for r in done))
+
+
+def attention_rounding_sensitivity(model, device, reqs, extras,
+                                   base) -> float:
+    """How far the kernel path's first-token logits (``base``, by rid)
+    move when only B4's outputs move, each by one bf16 unit up or down
+    (random, from SEED): the yardstick for the first-token tolerance.
+    Checks nothing itself."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+
+    cfg, params = model
+    original = layers.flash_attention
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+
+    def nudged(q, k, v, *, kind, window):
+        o = original(q, k, v, kind=kind, window=window).float()
+        up = torch.randint(0, 2, o.shape, generator=gen, device=o.device,
+                           dtype=torch.bool)
+        step = bf16_ulp(o)
+        return (o + torch.where(up, step, -step)).to(q.dtype)
+
+    worst = 0.0
+    for req in reqs:
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device=device)[None]
+        layers.flash_attention = nudged
+        try:
+            moved, _ = M.prefill(params, cfg, prompt, extras,
+                                 kernel_impl="auto")
+        finally:
+            layers.flash_attention = original
+        worst = max(worst, float((base[req.rid]
+                                  - moved[0, -1].float()).abs().max()))
+    return worst
+
+
+def f32_paths_agree(model, device, req, extras) -> None:
+    """The model in float32 (B4's f32 kernel on the kernel path): the
+    kernel and the plain path's first-token logits on ``req`` within
+    SLICE9_F32_TOL, where bf16 rounding no longer hides a difference."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model as M
+
+    cfg, params = model
+
+    def f32(t):
+        if isinstance(t, dict):
+            return {k: f32(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [f32(v) for v in t]
+        return t.float()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32, extras32 = f32(params), f32(extras)
+    prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                             device=device)[None]
+    logits = [M.prefill(params32, cfg32, prompt, extras32,
+                        kernel_impl=impl)[0][0, -1] for impl in ("auto", "jnp")]
+    diff = float((logits[0] - logits[1]).abs().max())
+    print(f"{cfg.name} in float32, first-token logits of request {req.rid} "
+          f"({len(req.prompt)} tokens), kernel vs plain path: max "
+          f"|difference| {diff} (tolerance {SLICE9_F32_TOL}; largest |logit| "
+          f"{float(logits[1].abs().max())})")
+    if not diff <= SLICE9_F32_TOL:
+        raise AssertionError(f"{cfg.name} in float32: first-token logits "
+                             f"differ by {diff} > {SLICE9_F32_TOL}")
+
+
+def slice9_cell(arch, n_req, lens, n_plain, device) -> int:
+    """One arch's serving cell at its published width (random weights
+    from SEED; extras from SEED; llama-3.2-vision's gates set to
+    CROSS_GATE_OPEN): phase 2's reading at its new shape where
+    SLICE9_READINGS names it, all ``n_req`` requests on the kernel path
+    and the first ``n_plain`` on the plain path, B4 launched once per
+    self-attention layer (encoder included) of every prefill on the
+    kernel path and never on the plain path, every other kernel never;
+    first-token logits within SLICE9_LOGIT_TOL beside how far B4's
+    rounding moves them; a profile where SLICE9_PROFILED names it.
+    Returns B4's launches on the kernel path."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import check_fits
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as TF
+
+    # the launcher's check, before allocating: the weights and the
+    # serving cache fit the card's free memory (qwen3-32b: 65.5 + 8.6 GB)
+    check_fits(get_config(arch), torch.cuda.mem_get_info()[0], SERVE_SLOTS,
+               SERVE_CACHE_LEN)
+    model = full_model(arch, device)
+    cfg, params = model
+    gates = [p["cross_gate"] for p in params["layers"] if "cross_gate" in p]
+    for g in gates:
+        g.fill_(CROSS_GATE_OPEN)
+    if gates:
+        print(f"{arch}: cross_gate set to {CROSS_GATE_OPEN} in all "
+              f"{len(gates)} cross layers (tanh {math.tanh(CROSS_GATE_OPEN):.4f}"
+              f"), for both paths: at its init of 0 the cross layers add "
+              f"exactly 0")
+    extras = M.random_extras(cfg, 1, SEED, device)
+    if arch in SLICE9_READINGS:
+        seq = SLICE9_READINGS[arch]
+        calls = capture_attention(cfg, params, seq, device)
+        errs = [flash_attention_error(*c) for c in calls]
+        print(f"flash_attention: the {len(calls)} layers of a real "
+              f"{seq}-token {arch} prefill: max_abs_err "
+              f"{max(e for e, _r, _f in errs)}, at most "
+              f"{max(r for _e, r, _f in errs)} of the tolerance")
+        if not all(r <= 1 and f for _e, r, f in errs):
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version on {arch}'s layers")
+        attention_reading(f"{arch} layer 0 of a real {seq}-token prefill",
+                          *calls[0])
+        del calls
+    per_prefill = (sum(TF.has_self_attention(s) for s in TF.layer_specs(cfg))
+                   + cfg.encoder_layers)
+
+    def requests():
+        return serve_requests(cfg, n=n_req, lens=lens,
+                              new_tokens=SLICE9_NEW_TOKENS)
+
+    runs = {"auto": slice9_run(model, device, "auto", requests(), extras),
+            "jnp": slice9_run(model, device, "jnp", requests()[:n_plain],
+                              extras)}
+    for impl, run in runs.items():
+        st = run["stats"]
+        want = {k: 0 for k in run["launches"]}
+        if impl == "auto":
+            want["flash_attention"] = per_prefill * st["prefills"]
+        print(f"{arch} serving kernel_impl={impl} ({SERVE_SLOTS} slots of "
+              f"{SERVE_CACHE_LEN}): {run['done']} of {run['n']} requests "
+              f"answered, {run['tokens']} tokens in {run['wall']:.3f} s "
+              f"({run['tokens'] / run['wall']:.2f} tokens/s); prefill "
+              f"{st['prefill_s'] / st['prefills'] * 1e3:.3f} ms per request "
+              f"({st['prefills']} prompts of {lens[0]}-{lens[1]} tokens, "
+              f"{run['prompt']} in all), decode "
+              f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms per step "
+              f"({st['decode_steps']} steps); launches {run['launches']}")
+        if (run["done"] != run["n"] or st["prefills"] != run["n"]
+                or run["launches"] != want):
+            raise AssertionError(f"{arch} kernel_impl={impl}: {run['done']} "
+                                 f"answered, {st['prefills']} prefills, "
+                                 f"launches {run['launches']}, want {want}")
+        for rid, out in run["outputs"].items():
+            if not (1 <= len(out) <= SLICE9_NEW_TOKENS
+                    and all(0 <= t < cfg.vocab_size for t in out)
+                    and bool(torch.isfinite(run["first"][rid]).all())
+                    and int(torch.argmax(run["first"][rid])) == out[0]):
+                raise AssertionError(f"{arch} kernel_impl={impl} request "
+                                     f"{rid}: output {out}, or its first "
+                                     f"token is not its logits' argmax")
+    k, j = runs["auto"], runs["jnp"]
+    worst = max(float((k["first"][rid] - j["first"][rid]).abs().max())
+                for rid in j["first"])
+    scale = max(float(lg.abs().max()) for lg in j["first"].values())
+    moved = attention_rounding_sensitivity(model, device,
+                                           requests()[:n_plain], extras,
+                                           k["first"])
+    same = sum(k["outputs"][rid][0] == j["outputs"][rid][0]
+               for rid in j["outputs"])
+    tol = SLICE9_LOGIT_TOL.get(arch, FIRST_LOGIT_TOL)
+    print(f"{arch} first-token logits, kernel vs plain path, over the "
+          f"{n_plain} prompts both served: max |difference| {worst} "
+          f"(tolerance {tol}; largest |logit| {scale}); {same} of {n_plain} "
+          f"first tokens agree; the kernel path against itself with B4's "
+          f"outputs moved by one bf16 unit: max |difference| {moved}")
+    if not worst <= tol:
+        raise AssertionError(f"{arch}: first-token logits differ by {worst} "
+                             f"> {tol}")
+    if arch in SLICE9_LOGIT_TOL:
+        f32_paths_agree(model, device, requests()[0], extras)
+    if arch in SLICE9_PROFILED:
+        n = SLICE9_PROFILED[arch]
+        wall = slice9_run(model, device, "auto", requests()[:n],
+                          extras)["wall"]
+        profile_share(f"{arch} serving, kernel path, the first {n} "
+                      f"requests",
+                      lambda: slice9_run(model, device, "auto",
+                                         requests()[:n], extras)["wall"],
+                      wall, ("flash_attention",))
+    launches = k["launches"]["flash_attention"]
+    del model, params, gates, extras, runs, k, j
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def main_path_slice9(device) -> int:
+    """Phase 13: the other archs' serving (SLICE9_CELLS), each at its
+    published width through ServingEngine on the kernel and the plain
+    path, one model on the card at a time. Returns B4's launches on the
+    kernel paths."""
+    import torch
+
+    total = 0
+    for cell in SLICE9_CELLS:
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        total += slice9_cell(*cell, device)
+        print(f"{cell[0]} cell: {time.time() - t0:.3f} s, peak card memory "
+              f"{torch.cuda.max_memory_allocated()} B")
+    return total
+
+
 def profile_steps(name, paths: dict, workload, device, warm: int = 100,
                   timed: int = 200, profiled: int = 20,
                   watch: str | None = None) -> None:
@@ -3675,6 +4070,8 @@ def build_kernels() -> None:
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3727,6 +4124,10 @@ def main() -> int:
     slice5 = phase("main path, slice 5", main_path_slice5, device, mixtral)
     rows[4]["launches"] = slice5["moe_dispatch"]
     rows[2]["launches"] += slice5["flash_attention"]
+    # phase 13 needs the card to itself (qwen3-32b's 65.5 GB of weights)
+    del model, rwkv, mixtral
+    gc.collect()
+    torch.cuda.empty_cache()
     phase("main path, slice 7", main_path_slice7, device)
     open_counts = phase("main path, slice 7: open arrival",
                         main_path_slice7_open, device)
@@ -3740,6 +4141,8 @@ def main() -> int:
                          main_path_slice8_sweep, device)
     rows[0]["launches"] += sweep_counts["lock_grant"]
     rows[1]["launches"] += sweep_counts["dep_wavefront"]
+    rows[2]["launches"] += phase("main path, slice 9: the other archs' "
+                                 "serving", main_path_slice9, device)
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

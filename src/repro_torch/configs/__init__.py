@@ -2,8 +2,8 @@
 
 ``get_config(name)`` returns the full published configuration;
 ``get_smoke_config(name)`` a reduced same-family config for CPU tests.
-Only gemma3-1b, rwkv6-1.6b and mixtral-8x22b are carried so far; the
-other archs raise ``NotImplementedError`` naming their slice.
+Every arch but llama4-maverick-400b-a17b is carried; that one raises
+``NotImplementedError`` naming its slice.
 """
 
 from repro_torch.configs.base import (

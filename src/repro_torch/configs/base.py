@@ -4,9 +4,8 @@ A model is a repeating *layer pattern* (the smallest heterogeneous unit,
 e.g. gemma3's [5x local, 1x global]) run ``pattern_repeats`` times, plus
 a ``tail``. The dataclasses are field-for-field those of the JAX
 package, so a test can build one from the other. The registry lists all
-ten architectures; only those whose config the port carries resolve,
-the others raise ``NotImplementedError`` naming the slice that brings
-them.
+ten architectures; all but llama4-maverick resolve, and that one raises
+``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -183,23 +182,22 @@ ARCHS = (
 
 # architectures whose config module the port carries
 _MODULES = {
+    "qwen3-32b": "qwen3_32b",
     "gemma3-1b": "gemma3_1b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "starcoder2-3b": "starcoder2_3b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "llama-3.2-vision-11b": "llama3_2_vision_11b",
+    "hymba-1.5b": "hymba_1_5b",
+    "whisper-tiny": "whisper_tiny",
     "mixtral-8x22b": "mixtral_8x22b",
 }
 
-_LATER = "a later slice of the LM substrate (ROADMAP Queue 1, item 13)"
-# the slice that brings each of the others
+# the slice that brings the one arch the port does not carry yet
 UNPORTED = {
     "llama4-maverick-400b-a17b": (
         "a later slice (early fusion, chunked + NoPE MoE; one repeat is "
         "70 GB)"),
-    "qwen3-32b": _LATER,
-    "stablelm-1.6b": _LATER,
-    "starcoder2-3b": _LATER,
-    "llama-3.2-vision-11b": _LATER,
-    "hymba-1.5b": _LATER,
-    "whisper-tiny": _LATER,
 }
 
 

@@ -5,24 +5,35 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke --slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny
 
-``--smoke`` (the default) runs the arch's reduced config, ``--no-smoke``
-its full published config, after checking that its weights fit the
-card's free memory (mixtral-8x22b's 281 GB do not: one card serves it
-cut to 8 of its 56 layers, as ``chip_smoke.py`` does). Weights are
-random, from ``--seed``, and so are the prompts (4-16 tokens, as the JAX
-launcher's).
+``--arch`` takes every arch but llama4-maverick-400b-a17b. ``--smoke``
+(the default) runs the arch's reduced config, ``--no-smoke`` its full
+published config, after checking that its weights and the serving cache
+(``--slots`` x ``--cache-len``) fit the card's free memory
+(mixtral-8x22b's 281 GB do not: one card serves it cut to 8 of its 56
+layers, as ``chip_smoke.py`` does). Weights are random, from ``--seed``,
+and so are the prompts (4-16 tokens, as the JAX launcher's) and, for
+llama-3.2-vision and whisper, the stub frontends' outputs that every
+prefill takes (``vision_embeds``, ``audio_frames``; the JAX launcher
+passes none, and those two archs fail there).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.configs import ModelConfig, get_config, get_smoke_config
+from repro_torch.configs import (
+    ModelConfig,
+    get_config,
+    get_smoke_config,
+    list_archs,
+)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.moe_dispatch import ops as md_ops
 from repro_torch.kernels.rwkv6_scan import ops as rw_ops
@@ -30,21 +41,29 @@ from repro_torch.models import model as M
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 
 
-def check_fits(cfg: ModelConfig, free_bytes: int) -> None:
-    """Raise before allocating if ``cfg``'s weights alone exceed
-    ``free_bytes`` of device memory."""
-    need = cfg.param_count() * getattr(torch, cfg.dtype).itemsize
-    if need > free_bytes:
+def check_fits(cfg: ModelConfig, free_bytes: int, slots: int = 0,
+               cache_len: int = 0) -> None:
+    """Raise before allocating if ``cfg``'s weights and a serving cache of
+    ``slots`` x ``cache_len`` exceed ``free_bytes`` of device memory."""
+    weights = cfg.param_count() * getattr(torch, cfg.dtype).itemsize
+    cache = 0
+    if slots:
+        spec = M.cache_spec(cfg, slots, cache_len)
+        cache = sum(math.prod(shape) * dtype.itemsize
+                    for entry in spec["layers"]
+                    for shape, dtype in entry.values())
+    if weights + cache > free_bytes:
         raise RuntimeError(
-            f"{cfg.name}: {need / 1e9:.1f} GB of {cfg.dtype} weights, "
-            f"{free_bytes / 1e9:.1f} GB free on the card: one card cannot "
-            f"hold it; serving it whole comes with the four-card "
-            f"distribution slice (ROADMAP Queue 1, item 11)")
+            f"{cfg.name}: {weights / 1e9:.1f} GB of {cfg.dtype} weights and "
+            f"{cache / 1e9:.1f} GB of cache, {free_bytes / 1e9:.1f} GB free "
+            f"on the card: one card cannot hold it; serving it whole comes "
+            f"with the four-card distribution slice (ROADMAP Queue 1, item "
+            f"11)")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma3-1b")
+    ap.add_argument("--arch", default="gemma3-1b", choices=list_archs())
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--requests", type=int, default=6)
@@ -57,7 +76,8 @@ def main(argv=None) -> int:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if torch.device(args.device).type == "cuda":
-        check_fits(cfg, torch.cuda.mem_get_info(args.device)[0])
+        check_fits(cfg, torch.cuda.mem_get_info(args.device)[0], args.slots,
+                   args.cache_len)
     params = M.init_params(cfg, args.seed, args.device)
     engine = ServingEngine(
         cfg,
@@ -75,9 +95,10 @@ def main(argv=None) -> int:
         )
         for i in range(args.requests)
     ]
+    extras = M.random_extras(cfg, 1, args.seed, args.device)
     fa_ops.launches = rw_ops.launches = md_ops.launches = 0
     t0 = time.perf_counter()
-    done = engine.run(reqs)
+    done = engine.run(reqs, extras)
     dt = time.perf_counter() - t0
     total = sum(len(r.output) for r in done)
     for r in sorted(done, key=lambda r: r.rid):

@@ -6,9 +6,14 @@ keeps one dict per layer in execution order. The einsum layouts are kept
 as they are: ``wq/wk/wv [d, heads, head_dim]``, ``wo [heads, head_dim,
 d]``, MLP ``wi/wg [d, ff]`` and ``wo [ff, d]``; an rwkv layer's ``tm``,
 ``cm``, ``ln_tm`` and ``ln_cm`` trees and its cache (``tm_x``, ``cm_x``,
-``state``) keep their names and layouts too, and so does a MoE layer's
+``state``) keep their names and layouts too, and so do a MoE layer's
 ``moe`` tree (``router [d, E]`` in f32, ``wi/wg [E, d, ff]``, ``wo [E,
-ff, d]``; [R, E, ...] per pattern position in JAX).
+ff, d]``; [R, E, ...] per pattern position in JAX), a hybrid layer's
+``ssm`` tree and cache ``state``, a cross layer's ``ln_cross``, ``cross``
+and ``cross_gate`` (a [R] leaf per pattern position in JAX, a 0-d tensor
+per layer here) and cache ``ck``/``cv``. ``pos_embed`` and
+``enc_final_norm`` stay top-level leaves; the encoder's ``l{i}`` dicts
+become the list ``params["encoder"]``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ def _tensors(tree, device, index=None):
         return {k: _tensors(v, device, index) for k, v in tree.items()}
     a = np.asarray(tree)
     if index is not None:
-        a = a[index]
+        a = np.asarray(a[index])  # a 0-d array, not a scalar, from a [R] leaf
     if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: exact through f32
         return torch.from_numpy(a.astype(np.float32)).to(device,
                                                           torch.bfloat16)
@@ -47,8 +52,12 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """The JAX ``init_params`` pytree (numpy leaves) as the port's params."""
     check_ported(cfg)
     params = {k: _tensors(tree[k], device)
-              for k in ("tok_embed", "final_norm", "lm_head") if k in tree}
+              for k in ("tok_embed", "final_norm", "lm_head", "pos_embed",
+                        "enc_final_norm") if k in tree}
     params["layers"] = _layers(cfg, tree, device)
+    if cfg.encoder_layers:
+        params["encoder"] = [_tensors(tree["encoder"][f"l{i}"], device)
+                             for i in range(cfg.encoder_layers)]
     return params
 
 

@@ -8,8 +8,8 @@ dropped (one card has no mesh).
 Prefill attention goes through kernel B4 (``kernels.flash_attention``,
 hand-written CUDA) where ``use_kernel(kernel_impl, device)`` says so, and
 otherwise through ``_attend_blocked``, the model's plain formulation.
-Decode attention, the MLP, the norms and the projections are plain
-PyTorch, as the JAX package left them to XLA.
+Decode attention, cross-attention, the MLP, the norms and the
+projections are plain PyTorch, as the JAX package left them to XLA.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ class AttnSpec:
     num_heads: int
     num_kv_heads: int
     head_dim: int
-    kind: str = "full"  # full | swa | chunked
+    kind: str = "full"  # full | swa | chunked | bidir (the encoder's)
     window: int = 0  # swa window / chunk size
     use_rope: bool = True
     rope_theta: float = 1e4
@@ -161,7 +161,12 @@ def _qkv(x, p, spec: AttnSpec, positions):
 
 
 def _block_mask(kind, q_pos, k_pos, window):
-    """bool[qb, kb]: True = attend. q_pos/k_pos absolute positions."""
+    """bool[qb, kb]: True = attend. q_pos/k_pos absolute positions.
+
+    Any other kind is causal, "bidir" included: the JAX package's mask
+    (``repro.models.layers._block_mask``) knows only swa and chunked, so
+    its encoder, which asks for "bidir", attends causally, and the port
+    computes the same."""
     causal = k_pos[None, :] <= q_pos[:, None]
     if kind == "swa":
         return causal & (q_pos[:, None] - k_pos[None, :] < window)
@@ -223,8 +228,11 @@ def self_attention(x, p, spec: AttnSpec, positions=None, q_offset=0,
     if use_kernel(kernel_impl, x.device):
         if q_offset:
             raise ValueError("flash_attention takes queries from position 0")
+        # "bidir" is causal in the model's mask (``_block_mask``), which is
+        # B4's "full"
+        kind = "full" if spec.kind == "bidir" else spec.kind
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              kind=spec.kind, window=spec.window)
+                              kind=kind, window=spec.window)
     else:
         out = _attend_blocked(q, k, v, spec, q_offset=q_offset)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), (k, v)
@@ -275,4 +283,36 @@ def decode_attention(x, p, spec: AttnSpec, cache_k, cache_v, pos,
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     pr = torch.softmax(s, dim=-1).to(x.dtype)
     out = torch.einsum("bkgqt,btkh->bqkgh", pr, cache_v).reshape(B, 1, NQ, HD)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+
+
+def _attend_memory(q, k, v, dtype):
+    """Unmasked attention of q [B,S,Nq,hd] over a memory k/v [B,T,Nkv,hd]."""
+    B, S, NQ, HD = q.shape
+    NKV = k.shape[2]
+    qg = q.reshape(B, S, NKV, NQ // NKV, HD)
+    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k).float() / math.sqrt(HD)
+    pr = torch.softmax(s, dim=-1).to(dtype)
+    return torch.einsum("bkgqt,btkh->bqkgh", pr, v).reshape(B, S, NQ, HD)
+
+
+def cross_attention(x, p, spec: AttnSpec, kv_tokens):
+    """Cross-attention to a static memory. x: [B,S,D]; kv_tokens: [B,T,D].
+    Returns (out [B,S,D], (k, v) [B,T,Nkv,hd])."""
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+    k = torch.einsum("btd,dnh->btnh", kv_tokens, p["wk"])
+    v = torch.einsum("btd,dnh->btnh", kv_tokens, p["wv"])
+    if spec.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    out = _attend_memory(q, k, v, x.dtype)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), (k, v)
+
+
+def cross_attention_cached(x, p, spec: AttnSpec, k, v):
+    """Decode-time cross-attention against precomputed k/v [B,T,Nkv,hd]."""
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+    if spec.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+    out = _attend_memory(q, k, v, x.dtype)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"])

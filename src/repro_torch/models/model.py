@@ -2,11 +2,17 @@
 port of ``repro.models.model``'s serving part).
 
 A cache is a dict: ``pos`` int32[B] and ``layers``, one dict per layer in
-execution order: an attention layer's ``k``/``v`` [B, clen, Nkv, hd]
-(and ``kpos`` int32[B, clen] for a ring cache), an rwkv layer's
-token-shift rows ``tm_x``/``cm_x`` [B, D] and its time mix's ``state``
-[B, H, hd, hd] f32. ``decode_step`` updates it IN PLACE and returns it;
-``prefill`` builds a new one.
+execution order: a self-attention layer's ``k``/``v`` [B, clen, Nkv, hd]
+(and ``kpos`` int32[B, clen] for a ring cache), a hybrid layer's Mamba
+``state`` [B, H, hd, N] f32 beside them, a cross layer's ``ck``/``cv``
+[B, T, Nkv, hd] (T = ``vision_tokens`` or ``audio_frames``), an rwkv
+layer's token-shift rows ``tm_x``/``cm_x`` [B, D] and its time mix's
+``state`` [B, H, hd, hd] f32. ``decode_step`` updates it IN PLACE and
+returns it; ``prefill`` builds a new one.
+
+``extras`` carries the inputs beside the tokens: ``vision_embeds``
+[B, vision_tokens, D] for llama-3.2-vision's cross layers,
+``audio_frames`` [B, audio_frames, D] for whisper's encoder.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as TF
 
 
@@ -34,12 +41,19 @@ def _layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch, cache_len):
         return {"tm_x": ((batch, cfg.d_model), dt),
                 "cm_x": ((batch, cfg.d_model), dt),
                 "state": ((batch, cfg.ssm_heads, hd, hd), torch.float32)}
-    ring = _ring(cfg, spec)
-    clen = min(cache_len, cfg.window) if ring else cache_len
-    kv = (batch, clen, cfg.num_kv_heads, cfg.head_dim)
-    c = {"k": (kv, dt), "v": (kv, dt)}
-    if ring:
-        c["kpos"] = ((batch, clen), torch.int32)
+    c = {}
+    if TF.has_self_attention(spec):
+        ring = _ring(cfg, spec)
+        clen = min(cache_len, cfg.window) if ring else cache_len
+        kv = (batch, clen, cfg.num_kv_heads, cfg.head_dim)
+        c["k"] = c["v"] = (kv, dt)
+        if ring:
+            c["kpos"] = ((batch, clen), torch.int32)
+    if spec.mixer == "hybrid":
+        c["state"] = (TF.ssm_state_shape(cfg, batch), torch.float32)
+    if spec.has_cross:
+        t = cfg.vision_tokens or cfg.audio_frames or 1
+        c["ck"] = c["cv"] = ((batch, t, cfg.num_kv_heads, cfg.head_dim), dt)
     return c
 
 
@@ -70,35 +84,63 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
     }
 
 
-def prefill(params, cfg: ModelConfig, tokens, cache_len=None,
-            kernel_impl="auto"):
-    """Process the prompt (tokens int[B,S]) and build the decode cache.
-    Returns (logits [B,1,V] of the last position, cache)."""
-    B, S = tokens.shape
-    cache_len = cache_len or S
-    cache = init_cache(cfg, B, cache_len, tokens.device)
-    x = TF._embed(params, cfg, tokens)
-    for p, spec, entry in zip(params["layers"], TF.layer_specs(cfg),
-                              cache["layers"]):
-        x, _, newc = TF.apply_layer(x, p, cfg, spec, want_cache=True,
-                                    kernel_impl=kernel_impl)
-        if spec.mixer == "rwkv":
-            for name, t in newc.items():
-                entry[name].copy_(t)
-            continue
+def random_extras(cfg: ModelConfig, batch: int, seed: int, device):
+    """Unit-normal stand-ins for the stub frontends' outputs, from
+    ``seed``, in the config's dtype: ``vision_embeds`` [batch,
+    vision_tokens, D] and/or ``audio_frames`` [batch, audio_frames, D];
+    {} for an arch that takes neither."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out = {}
+    for name, n in (("vision_embeds", cfg.vision_tokens),
+                    ("audio_frames", cfg.audio_frames)):
+        if n:
+            out[name] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                                    device=device).to(getattr(torch,
+                                                              cfg.dtype))
+    return out
+
+
+def _fill_entry(cfg, spec, entry, newc, S_):
+    """Write one layer's prefill outputs into its cache entry: k/v (the
+    last window of them, with their positions, in a ring cache), then
+    whichever of ``tm_x``, ``cm_x``, ``state``, ``ck``, ``cv`` the layer
+    made."""
+    if "k" in entry:
         k, v = newc["k"], newc["v"]
         if _ring(cfg, spec):
-            take = min(S, entry["k"].shape[1])
-            entry["k"][:, :take] = k[:, S - take:]
-            entry["v"][:, :take] = v[:, S - take:]
+            take = min(S_, entry["k"].shape[1])
+            entry["k"][:, :take] = k[:, S_ - take:]
+            entry["v"][:, :take] = v[:, S_ - take:]
             entry["kpos"][:, :take] = torch.arange(
-                S - take, S, dtype=torch.int32, device=tokens.device)[None]
+                S_ - take, S_, dtype=torch.int32, device=k.device)[None]
         else:
-            entry["k"][:, :S] = k
-            entry["v"][:, :S] = v
+            entry["k"][:, :S_] = k
+            entry["v"][:, :S_] = v
+    for name in ("tm_x", "cm_x", "state", "ck", "cv"):
+        if name in newc:
+            entry[name].copy_(newc[name])
+
+
+def prefill(params, cfg: ModelConfig, tokens, extras=None, cache_len=None,
+            kernel_impl="auto"):
+    """Process the prompt (tokens int[B,S]; ``extras`` as the module says)
+    and build the decode cache. Returns (logits [B,1,V] of the last
+    position, cache)."""
+    extras = extras or {}
+    B, S_ = tokens.shape
+    cache_len = cache_len or S_
+    cache = init_cache(cfg, B, cache_len, tokens.device)
+    x = TF._embed(params, cfg, tokens)
+    cross = TF._cross_tokens(params, cfg, extras, kernel_impl)
+    for p, spec, entry in zip(params["layers"], TF.layer_specs(cfg),
+                              cache["layers"]):
+        x, _, newc = TF.apply_layer(x, p, cfg, spec, cross_tokens=cross,
+                                    want_cache=True, kernel_impl=kernel_impl)
+        _fill_entry(cfg, spec, entry, newc, S_)
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     logits = TF._lm_head(params, cfg, x[:, -1:, :])
-    cache["pos"].fill_(S)
+    cache["pos"].fill_(S_)
     return logits, cache
 
 
@@ -111,25 +153,43 @@ def _decode_layer(x, p, cfg, spec, entry, pos, kernel_impl):
         entry["tm_x"].copy_(newc["tm_x"])
         entry["cm_x"].copy_(newc["cm_x"])
         return x
-    h = L.apply_norm(cfg.norm, x, p["ln_attn"])
-    o = L.decode_attention(h, p["attn"], TF.attn_spec(cfg, spec), entry["k"],
-                           entry["v"], pos, ring=_ring(cfg, spec),
-                           cache_kpos=entry.get("kpos"))
-    x = x + o
+    sp = TF.attn_spec(cfg, spec)
+    if TF.has_self_attention(spec):
+        h = L.apply_norm(cfg.norm, x, p["ln_attn"])
+        o = L.decode_attention(h, p["attn"], sp, entry["k"], entry["v"], pos,
+                               ring=_ring(cfg, spec),
+                               cache_kpos=entry.get("kpos"))
+        if spec.mixer == "hybrid":
+            o2, st = S.mamba_head(h, entry["state"], p["ssm"])
+            entry["state"].copy_(st)
+            o = 0.5 * (o + o2)
+        x = x + o
+    if spec.has_cross:
+        h = L.apply_norm(cfg.norm, x, p["ln_cross"])
+        o = L.cross_attention_cached(h, p["cross"], sp, entry["ck"],
+                                     entry["cv"])
+        x = x + TF.gated(o, p)
     o, _ = TF._mlp_or_moe(x, p, cfg, spec, kernel_impl)
     return x + o
 
 
-def decode_step(params, cfg: ModelConfig, cache, token, kernel_impl="auto"):
-    """One decode step for the whole batch. token: int[B,1].
-    ``kernel_impl`` picks kernel B5 for an rwkv layer's step and kernel
-    B3 for a MoE layer's dispatch plan (``repro_torch.kernels.use_kernel``);
-    attention decodes in plain PyTorch.
+def decode_step(params, cfg: ModelConfig, cache, token, extras=None,
+                kernel_impl="auto"):
+    """One decode step for the whole batch. token: int[B,1]. ``extras``
+    is taken for the JAX signature's sake and unused, as there: the cross
+    layers read their ``ck``/``cv`` from the cache. ``kernel_impl`` picks
+    kernel B5 for an rwkv layer's step and kernel B3 for a MoE layer's
+    dispatch plan (``repro_torch.kernels.use_kernel``); attention, the
+    Mamba head and cross-attention decode in plain PyTorch.
 
     Returns (logits [B,1,V], cache), the cache updated in place.
     """
     pos = cache["pos"]
     x = params["tok_embed"][token]
+    if cfg.pos_embedding == "learned":
+        # past the table's end every position reads its last row
+        x = x + params["pos_embed"][torch.clamp(pos, max=cfg.max_seq - 1)
+                                    ][:, None]
     for p, spec, entry in zip(params["layers"], TF.layer_specs(cfg),
                               cache["layers"]):
         x = _decode_layer(x, p, cfg, spec, entry, pos, kernel_impl)

@@ -1,5 +1,6 @@
-"""Attention-free mixers: the RWKV6 time mix and channel mix (the port of
-the RWKV half of ``repro.models.ssm``).
+"""Attention-free mixers: the RWKV6 time mix and channel mix, and the
+Mamba-style selective SSM head of Hymba's hybrid layers (the port of
+``repro.models.ssm``).
 
 The time mix is a linear-time recurrence: prefill runs it over the
 prompt and decode runs one step of it, carrying a [B,H,hd,hd] state.
@@ -7,8 +8,10 @@ Both go through kernel B5 (``kernels.rwkv6_scan``, hand-written CUDA)
 where ``use_kernel(kernel_impl, device)`` says so, and otherwise through
 its plain version, the loop over time the JAX package runs as a
 ``lax.scan``. The projections, the decay and the norms are plain
-PyTorch, as the JAX package left them to XLA. The Mamba head (Hymba's
-branch) comes with a later slice.
+PyTorch, as the JAX package left them to XLA.
+
+The Mamba head has no kernel in the JAX package: it is the same loop over
+time on an f32 [B,H,hd,N] state, a ``lax.scan`` there, plain PyTorch here.
 """
 
 from __future__ import annotations
@@ -128,3 +131,61 @@ def rwkv_channelmix(x, x_prev, p):
     xk = x + (_shifted(x, x_prev) - x) * p["mix_k"]
     h = torch.square(F.relu(xk @ p["wk"]))
     return h @ p["wv"], x[:, -1, :]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-style selective SSM head (Hymba's parallel branch)
+# ---------------------------------------------------------------------------
+def init_mamba_head(d, n_heads, head_dim, state_dim, dtype, device, gen):
+    s = 1.0 / math.sqrt(d)
+
+    def rand(shape, scale):
+        return normal(shape, scale, dtype, device, gen)
+
+    return {
+        "wx": rand((d, n_heads, head_dim), s),
+        "wz": rand((d, n_heads, head_dim), s),
+        "wB": rand((d, state_dim), s),
+        "wC": rand((d, state_dim), s),
+        "wdt": rand((d, n_heads), s),
+        "dt_bias": torch.zeros(n_heads, dtype=dtype, device=device),
+        "A_log": torch.zeros(n_heads, dtype=dtype, device=device),
+        "D": torch.ones((n_heads, head_dim), dtype=dtype, device=device),
+        "wo": rand((n_heads, head_dim, d), 1.0 / math.sqrt(n_heads * head_dim)),
+        "ln": torch.ones(n_heads * head_dim, dtype=dtype, device=device),
+    }
+
+
+def mamba_head(x, state, p):
+    """Selective SSM. x: [B,S,D]; state: [B,H,hd,N] f32 (not modified).
+
+    Returns (out [B,S,D], new state). Each cast sits where the JAX
+    package has it: B, C and the softplus of dt (+ ``dt_bias``, in x's
+    type) go to f32 after their products in x's type, ``A_log`` to f32
+    before its exp; the loop over time runs in f32.
+    """
+    B, S, _ = x.shape
+    H, HD = p["D"].shape
+    xh = torch.einsum("bsd,dnh->bsnh", x, p["wx"])
+    z = torch.einsum("bsd,dnh->bsnh", x, p["wz"])
+    Bt = (x @ p["wB"]).float()  # [B,S,N]
+    Ct = (x @ p["wC"]).float()
+    dt = F.softplus(x @ p["wdt"] + p["dt_bias"]).float()  # [B,S,H]
+    A = -torch.exp(p["A_log"].float())  # [H]
+    decay = torch.exp(dt * A[None, None, :])  # [B,S,H]
+    x32 = xh.float()
+    inp = dt[..., None] * x32  # [B,S,H,hd]: dt_t * x_t of every step
+    st = state.float().clone()
+    rows = st.view(B, H * HD, st.shape[-1])  # y_t = rows . C_t
+    ys = torch.empty((S, B, H * HD, 1), dtype=torch.float32, device=x.device)
+    for t in range(S):
+        # st = decay_t * st + (dt_t * x_t) outer B_t; y_t = st . C_t: three
+        # kernels a step, in place
+        st.mul_(decay[:, t, :, None, None])
+        st.addcmul_(inp[:, t, :, :, None], Bt[:, t, None, None, :])
+        torch.bmm(rows, Ct[:, t, :, None], out=ys[t])
+    y = ys[..., 0].transpose(0, 1).reshape(B, S, H, HD)
+    y = y + p["D"][None, None].float() * x32
+    y = (y * F.silu(z.float())).reshape(B, S, H * HD)
+    y = rmsnorm(y, p["ln"]).to(x.dtype)
+    return torch.einsum("bsnh,nhd->bsd", y.reshape(B, S, H, HD), p["wo"]), st

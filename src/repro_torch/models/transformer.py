@@ -1,13 +1,15 @@
-"""Layer blocks and whole-model assembly, for the attention mixer with a
-dense MLP or a MoE FFN and the rwkv mixer (the port of
+"""Layer blocks and whole-model assembly for every mixer: attention (with
+a dense MLP or a MoE FFN), rwkv, and the hybrid attention + Mamba head;
+cross-attention layers, learned positions and the encoder (the port of
 ``repro.models.transformer``).
 
 The JAX package stacks each pattern position's weights over
 ``pattern_repeats`` and scans them; the port keeps one plain dict of
 tensors per layer in ``params["layers"]``, in the scan's order: for each
 repeat r the pattern positions l0, l1, ...; then the tail
-(``layer_specs``). Other mixers and features raise
-``NotImplementedError`` naming the slice that brings them.
+(``layer_specs``). The encoder's layers are ``params["encoder"]``, a list
+in order. What is not ported yet (early fusion, per-shard MoE dispatch)
+raises ``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -21,29 +23,21 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 
-_LATER = "a later slice of the LM substrate (ROADMAP Queue 1, item 13)"
+_EARLY_FUSION = ("a later slice with llama4-maverick (ROADMAP Queue 1, item "
+                 "13.4, with item 11)")
+# the encoder's layers: attention without RoPE and a dense MLP
+ENC_SPEC = LayerSpec(mixer="attn", attn_kind="full", use_rope=False)
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port cannot build yet."""
     unported = []
-    for spec in cfg.pattern + cfg.tail:
-        if spec.mixer == "hybrid":
-            unported.append(("the hybrid mixer", _LATER))
-        elif spec.attn_kind == "none" and spec.mixer != "rwkv":
-            unported.append(("attn_kind 'none'", _LATER))
-        if spec.has_cross:
-            unported.append(("cross-attention", _LATER))
     if cfg.moe_dispatch_shards > 1 and any(
             s.is_moe for s in cfg.pattern + cfg.tail):
         unported.append(("per-shard MoE dispatch (moe_dispatch_shards > 1)",
                          MOE.DISTRIBUTION))
-    if cfg.encoder_layers:
-        unported.append(("the encoder", _LATER))
-    if cfg.pos_embedding == "learned":
-        unported.append(("learned position embeddings", _LATER))
     if cfg.early_fusion_tokens:
-        unported.append(("early-fusion tokens", _LATER))
+        unported.append(("early-fusion tokens", _EARLY_FUSION))
     if unported:
         what, where = unported[0]
         raise NotImplementedError(
@@ -58,7 +52,7 @@ def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
 # ---------------------------------------------------------------------------
 # per-layer params
 # ---------------------------------------------------------------------------
-def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> L.AttnSpec:
+def attn_spec(cfg: ModelConfig, spec: LayerSpec, bidir=False) -> L.AttnSpec:
     theta = cfg.rope_theta
     if spec.attn_kind == "full" and cfg.rope_theta_global is not None:
         theta = cfg.rope_theta_global
@@ -66,13 +60,17 @@ def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> L.AttnSpec:
         num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.head_dim,
-        kind=spec.attn_kind,
+        kind="bidir" if bidir else spec.attn_kind,
         window=cfg.window,
         use_rope=spec.use_rope and cfg.pos_embedding == "rope",
         rope_theta=theta,
         partial_rotary=cfg.partial_rotary,
         qk_norm=cfg.qk_norm,
     )
+
+
+def has_self_attention(spec: LayerSpec) -> bool:
+    return spec.mixer in ("attn", "hybrid") and spec.attn_kind != "none"
 
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec, device, gen):
@@ -86,11 +84,20 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, device, gen):
             "ln_cm": L.init_norm(cfg.norm, d, dt, device),
             "cm": S.init_rwkv_channelmix(d, cfg.d_ff, dt, device, gen),
         }
-    p = {
-        "ln_attn": L.init_norm(cfg.norm, d, dt, device),
-        "attn": L.init_attn(d, attn_spec(cfg, spec), dt, device, gen),
-        "ln_mlp": L.init_norm(cfg.norm, d, dt, device),
-    }
+    p = {}
+    if has_self_attention(spec):
+        p["ln_attn"] = L.init_norm(cfg.norm, d, dt, device)
+        p["attn"] = L.init_attn(d, attn_spec(cfg, spec), dt, device, gen)
+    if spec.mixer == "hybrid":
+        p["ssm"] = S.init_mamba_head(d, cfg.ssm_heads or cfg.num_heads,
+                                     cfg.head_dim, cfg.ssm_state, dt, device,
+                                     gen)
+    if spec.has_cross:
+        p["ln_cross"] = L.init_norm(cfg.norm, d, dt, device)
+        p["cross"] = L.init_attn(d, attn_spec(cfg, spec), dt, device, gen)
+        if cfg.gated_cross:  # tanh(0) = 0: a new cross layer starts shut
+            p["cross_gate"] = torch.zeros((), dtype=dt, device=device)
+    p["ln_mlp"] = L.init_norm(cfg.norm, d, dt, device)
     if spec.is_moe:
         p["moe"] = MOE.init_moe(
             d, cfg.expert_d_ff or cfg.d_ff, cfg.num_experts, dt, device, gen,
@@ -98,6 +105,12 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, device, gen):
     else:
         p["mlp"] = L.init_mlp(cfg.mlp, d, cfg.d_ff, dt, device, gen)
     return p
+
+
+def ssm_state_shape(cfg: ModelConfig, batch: int) -> tuple:
+    """A hybrid layer's Mamba state: [B, H, hd, N]."""
+    return (batch, cfg.ssm_heads or cfg.num_heads, cfg.head_dim,
+            cfg.ssm_state)
 
 
 # ---------------------------------------------------------------------------
@@ -131,10 +144,21 @@ def rwkv_layer(x, p, cfg, tm_x, cm_x, state, *, kernel_impl="auto",
     return x + o, {"tm_x": tmx, "cm_x": cmx, "state": st}
 
 
-def apply_layer(x, p, cfg, spec, *, want_cache=False, kernel_impl="auto"):
+def gated(o, p):
+    """A cross layer's output through its gate, ``tanh(cross_gate) * o``,
+    where the config gates (llama-3.2-vision; whisper does not)."""
+    if "cross_gate" in p:
+        return torch.tanh(p["cross_gate"]) * o
+    return o
+
+
+def apply_layer(x, p, cfg, spec, *, cross_tokens=None, want_cache=False,
+                kernel_impl="auto"):
     """One layer over the whole sequence, from an empty cache. Returns (x,
-    aux, cache entry or None); the entry holds an attention layer's k and
-    v [B,S,Nkv,hd], an rwkv layer's ``tm_x``, ``cm_x`` and ``state``."""
+    aux, cache entry or None); the entry holds a self-attention layer's k
+    and v [B,S,Nkv,hd], a hybrid layer's Mamba ``state``, a cross layer's
+    ``ck``/``cv`` [B,T,Nkv,hd] over ``cross_tokens`` [B,T,D], and an rwkv
+    layer's ``tm_x``, ``cm_x`` and ``state``."""
     if spec.mixer == "rwkv":
         B = x.shape[0]
         z = torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
@@ -142,12 +166,24 @@ def apply_layer(x, p, cfg, spec, *, want_cache=False, kernel_impl="auto"):
                           dtype=torch.float32, device=x.device)
         x, newc = rwkv_layer(x, p, cfg, z, z, st0, kernel_impl=kernel_impl)
         return x, 0.0, (newc if want_cache else None)
-    h = L.apply_norm(cfg.norm, x, p["ln_attn"])
-    o, (k, v) = L.self_attention(h, p["attn"], attn_spec(cfg, spec),
-                                 kernel_impl=kernel_impl)
-    x = x + o
+    newc = {}
+    if has_self_attention(spec):
+        h = L.apply_norm(cfg.norm, x, p["ln_attn"])
+        o, (newc["k"], newc["v"]) = L.self_attention(
+            h, p["attn"], attn_spec(cfg, spec), kernel_impl=kernel_impl)
+        if spec.mixer == "hybrid":
+            st0 = torch.zeros(ssm_state_shape(cfg, x.shape[0]),
+                              dtype=torch.float32, device=x.device)
+            o2, newc["state"] = S.mamba_head(h, st0, p["ssm"])
+            o = 0.5 * (o + o2)
+        x = x + o
+    if spec.has_cross:
+        h = L.apply_norm(cfg.norm, x, p["ln_cross"])
+        o, (newc["ck"], newc["cv"]) = L.cross_attention(
+            h, p["cross"], attn_spec(cfg, spec), cross_tokens)
+        x = x + gated(o, p)
     o, aux = _mlp_or_moe(x, p, cfg, spec, kernel_impl)
-    return x + o, aux, ({"k": k, "v": v} if want_cache else None)
+    return x + o, aux, (newc if want_cache else None)
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +192,9 @@ def apply_layer(x, p, cfg, spec, *, want_cache=False, kernel_impl="auto"):
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Random weights from ``seed`` on ``device`` (a ``torch.Generator``
     there), with the JAX package's shapes and scales; the numbers differ
-    from JAX's (``models.convert.params_from_numpy`` takes those)."""
+    from JAX's (``models.convert.params_from_numpy`` takes those). Each
+    tensor is drawn and cast alone, so the peak is the weights and one
+    tensor's f32 draw."""
     check_ported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
@@ -170,8 +208,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.normal((d, cfg.vocab_size), 1.0 / math.sqrt(d),
                                      dt, device, gen)
+    if cfg.pos_embedding == "learned":
+        params["pos_embed"] = L.normal((cfg.max_seq, d), 0.02, dt, device,
+                                       gen)
     params["layers"] = [init_layer(cfg, spec, device, gen)
                         for spec in layer_specs(cfg)]
+    if cfg.encoder_layers:  # whisper's encoder (its conv frontend a stub)
+        params["encoder"] = [init_layer(cfg, ENC_SPEC, device, gen)
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_final_norm"] = L.init_norm(cfg.norm, d, dt, device)
     return params
 
 
@@ -179,7 +224,43 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 # forward passes
 # ---------------------------------------------------------------------------
 def _embed(params, cfg, tokens):
-    return params["tok_embed"][tokens]
+    x = params["tok_embed"][tokens]
+    if cfg.pos_embedding == "learned":
+        x = x + params["pos_embed"][:x.shape[1]][None]
+    return x
+
+
+def _cross_tokens(params, cfg, extras, kernel_impl="auto"):
+    """The cross layers' memory [B,T,D]: the encoder over
+    ``extras["audio_frames"]`` (whisper), else ``extras["vision_embeds"]``
+    (llama-3.2-vision), else None."""
+    if cfg.audio_frames and "audio_frames" in extras:
+        return run_encoder(params, cfg, extras["audio_frames"], kernel_impl)
+    return extras.get("vision_embeds")
+
+
+def run_encoder(params, cfg, frames, kernel_impl="auto"):
+    """Whisper's encoder over precomputed (stub) conv-frontend frames
+    [B,T,D]: a sinusoidal table computed in f32 and cast once, then
+    ``encoder_layers`` attention + MLP layers ("bidir", which the JAX
+    package's mask makes causal: ``layers._block_mask``), then
+    ``enc_final_norm``."""
+    d = cfg.d_model
+    T = frames.shape[1]
+    half = torch.arange(0, d, 2, device=frames.device)
+    pos = (torch.arange(T, device=frames.device)[:, None].float()
+           / torch.pow(torch.tensor(10000.0, device=frames.device),
+                       half[None, :].float() / d))
+    pe = torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)[:, :d]
+    x = frames + pe[None].to(frames.dtype)
+    spec = attn_spec(cfg, ENC_SPEC, bidir=True)
+    for p in params["encoder"]:
+        h = L.apply_norm(cfg.norm, x, p["ln_attn"])
+        o, _ = L.self_attention(h, p["attn"], spec, kernel_impl=kernel_impl)
+        x = x + o
+        o, _ = _mlp_or_moe(x, p, cfg, ENC_SPEC)
+        x = x + o
+    return L.apply_norm(cfg.norm, x, params["enc_final_norm"])
 
 
 def _lm_head(params, cfg, x):
@@ -188,13 +269,17 @@ def _lm_head(params, cfg, x):
     return x @ params["lm_head"]
 
 
-def forward(params, cfg: ModelConfig, tokens, *, kernel_impl="auto"):
+def forward(params, cfg: ModelConfig, tokens, extras=None, *,
+            kernel_impl="auto"):
     """Full-sequence forward. Returns (hidden [B,S,D], aux_loss)."""
     check_ported(cfg)
+    extras = extras or {}
     x = _embed(params, cfg, tokens)
+    cross = _cross_tokens(params, cfg, extras, kernel_impl)
     aux_total = 0.0
     for p, spec in zip(params["layers"], layer_specs(cfg)):
-        x, a, _ = apply_layer(x, p, cfg, spec, kernel_impl=kernel_impl)
+        x, a, _ = apply_layer(x, p, cfg, spec, cross_tokens=cross,
+                              kernel_impl=kernel_impl)
         aux_total = aux_total + a
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     return x, aux_total

@@ -7,9 +7,10 @@ the planner hands the executor an explicit plan (slot ids, token
 buffers). The decode step runs over the whole slot batch with per-slot
 activity masked on the host, so shapes never change as requests come
 and go. The cache is updated in place: a prefilled request's cache is
-copied into its slot's rows, and each decode step writes one position
-(an attention layer) or its slot's token-shift rows and state (an rwkv
-layer).
+copied into its slot's rows (k/v, and a hybrid layer's Mamba state and a
+cross layer's ``ck``/``cv`` where the arch has them), and each decode
+step writes one position (an attention layer), its slot's Mamba state (a
+hybrid layer) or its slot's token-shift rows and state (an rwkv layer).
 """
 
 from __future__ import annotations
@@ -61,12 +62,12 @@ class ServingEngine:
                           decode_s=0.0)
 
     # -- plan: admit requests, prefill their prompts into their slots ----
-    def _admit(self):
+    def _admit(self, extras=None):
         for req in self.planner.plan():
             t0 = time.perf_counter()
             prompt = torch.as_tensor(req.prompt[None, :], dtype=torch.long,
                                      device=self.device)
-            logits, cache1 = M.prefill(self.params, self.cfg, prompt,
+            logits, cache1 = M.prefill(self.params, self.cfg, prompt, extras,
                                        cache_len=self.scfg.cache_len,
                                        kernel_impl=self.kernel_impl)
             # greedy: the first maximum, as jnp.argmax
@@ -80,12 +81,18 @@ class ServingEngine:
             self.tokens[req.slot, 0] = tok
             self.active[req.slot] = True
 
-    def run(self, requests: list[Request]) -> list[Request]:
+    def run(self, requests: list[Request], extras=None) -> list[Request]:
+        """Serve ``requests`` to their ends. ``extras`` (tensors or arrays,
+        batch 1: ``vision_embeds`` or ``audio_frames``) go with every
+        request's prefill, as in the JAX engine."""
+        if extras:
+            extras = {k: torch.as_tensor(v, device=self.device)
+                      for k, v in extras.items()}
         for r in requests:
             self.planner.submit(r)
         out = []
         while self.planner.has_work:
-            self._admit()
+            self._admit(extras)
             if not self.active.any():
                 break
             t0 = time.perf_counter()

@@ -1,8 +1,10 @@
 """The port's serving path against ``repro.serve``: the admission planner's
 decisions, and the engine's output tokens token for token (gemma3-1b
 SMOKE config in float32, the same weights, more requests than slots);
-unported archs raise ``NotImplementedError``; the launcher runs on the
-CPU."""
+the one unported arch and the two unported features raise
+``NotImplementedError``, the archs and features ported since build with
+the JAX package's configs, shapes and dtypes; the launcher runs on the
+CPU, every arch it takes at SMOKE."""
 
 import dataclasses
 
@@ -13,6 +15,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.serve import AdmissionPlanner as JaxPlanner  # noqa: E402
@@ -25,7 +28,7 @@ from repro_torch.configs.base import LayerSpec  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.convert import cache_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.serve import AdmissionPlanner, Request, ServeConfig, ServingEngine  # noqa: E402
 
 ARCH = "gemma3-1b"
@@ -111,6 +114,11 @@ def test_engine_rejects_params_on_another_device():
         ServingEngine(cfg, ServeConfig(), params)  # the card by default
 
 
+# the archs the port carries since the slice of the other archs' serving
+FORMERLY_UNPORTED = ("qwen3-32b", "stablelm-1.6b", "starcoder2-3b",
+                     "llama-3.2-vision-11b", "hymba-1.5b", "whisper-tiny")
+
+
 @pytest.mark.parametrize("arch", sorted(config_base.UNPORTED))
 def test_unported_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -119,14 +127,21 @@ def test_unported_arch_raises(arch):
         get_smoke_config(arch)
 
 
+@pytest.mark.parametrize("arch", FORMERLY_UNPORTED)
+def test_formerly_unported_arch_loads(arch):
+    """Published and SMOKE configs field for field the JAX package's, with
+    the same analytic parameter count."""
+    assert arch not in config_base.UNPORTED
+    for port, ref in ((get_config(arch), jax_config(arch)),
+                      (get_smoke_config(arch), jax_smoke(arch))):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.param_count() == ref.param_count()
+        assert port.num_layers == ref.num_layers
+
+
 @pytest.mark.parametrize("change", [
-    dict(pattern=(LayerSpec(mixer="attn", attn_kind="none"),)),
-    dict(pattern=(LayerSpec(mixer="hybrid"),)),
     dict(pattern=(LayerSpec(is_moe=True),), num_experts=4,
          experts_per_token=2, moe_dispatch_shards=2),
-    dict(tail=(LayerSpec(has_cross=True),)),
-    dict(encoder_layers=2),
-    dict(pos_embedding="learned"),
     dict(early_fusion_tokens=4),
 ])
 def test_building_an_unported_feature_raises(change):
@@ -137,9 +152,58 @@ def test_building_an_unported_feature_raises(change):
         M.init_cache(cfg, 1, 8, "cpu")
 
 
+@pytest.mark.parametrize("change", [
+    dict(pattern=(LayerSpec(mixer="attn", attn_kind="none"),)),
+    dict(pattern=(LayerSpec(mixer="hybrid"),)),
+    dict(tail=(LayerSpec(has_cross=True),)),
+    dict(encoder_layers=2),
+    dict(pos_embedding="learned"),
+])
+def test_building_a_formerly_unported_feature(change):
+    """The port's own ``init_params`` and ``init_cache`` give the shapes
+    and dtypes of the JAX trees carried across (``params_from_numpy``,
+    ``cache_from_numpy``)."""
+    cfg = dataclasses.replace(get_smoke_config(ARCH), **change)
+    jcfg = dataclasses.replace(jax_smoke(ARCH), **change)
+    tree = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), jax.eval_shape(
+        lambda: JM.init_params(jcfg, jax.random.PRNGKey(0))))
+    jcache = jax.tree.map(np.asarray, JM.init_cache(jcfg, 2, 8))
+
+    def shapes(t):
+        return [(tuple(x.shape), x.dtype) for x in jax.tree.leaves(t)]
+
+    got = M.init_params(cfg, seed=0, device="cpu")
+    assert shapes(got) == shapes(params_from_numpy(cfg, tree, "cpu"))
+    assert shapes(M.init_cache(cfg, 2, 8, "cpu")) == shapes(
+        cache_from_numpy(cfg, jcache, "cpu"))
+
+
 def test_launch_serve_runs_on_the_cpu(capsys):
     assert launch_serve.main(["--device", "cpu", "--requests", "3",
                               "--max-new", "4", "--slots", "2"]) == 0
     out = capsys.readouterr().out
     assert "3 requests, 12 tokens" in out and "tok/s" in out
     assert "flash_attention launches 0" in out
+
+
+@pytest.mark.parametrize("arch", FORMERLY_UNPORTED)
+def test_launch_serve_runs_each_arch_on_the_cpu(arch, capsys):
+    """At SMOKE, with the seeded ``vision_embeds`` / ``audio_frames``
+    that llama-3.2-vision's and whisper's prefills take."""
+    assert launch_serve.main(["--device", "cpu", "--arch", arch,
+                              "--requests", "3", "--max-new", "4",
+                              "--slots", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "3 requests, 12 tokens" in out and "flash_attention launches 0" in out
+
+
+def test_check_fits_counts_the_cache():
+    """qwen3-32b's weights fit 80 GB; with 8 x 4,096 cache rows a card with
+    70 GB free does not hold them."""
+    cfg = get_config("qwen3-32b")
+    weights = cfg.param_count() * 2
+    cache = 64 * 2 * 8 * 4096 * 8 * 128 * 2
+    launch_serve.check_fits(cfg, weights + cache)
+    with pytest.raises(RuntimeError, match="cache"):
+        launch_serve.check_fits(cfg, weights + cache - 1, 8, 4096)
+    launch_serve.check_fits(cfg, weights + cache - 1)
