@@ -198,6 +198,32 @@ Phases (each raises on failure; the script then exits non-zero):
                of a real prefill and timed in turns at layer 0 beside
                its plain version, SDPA and the bound; the device busy
                share of both on the kernel path.
+ 14. main path, slice 10: the legacy layout and the latency oracle — at
+               the paper's width (LEGACY_CELLS: orthrus 16 + 64 at window
+               4, deadlock_free and the three dynamic-2PL schemes on 80
+               lanes, the partitioned store on Fig 6's cell, dgcc and
+               quecc 16 + 64 at window 4; the lock-table cells SIM_K's
+               1,000 rounds, the batch cells SIM_K_BATCH's 2,000) each
+               cell through ``run_simulation`` on the K = 1 graph twice:
+               under ``state_layout="legacy"`` (the frozen pre-packed
+               engine, ``engine_legacy``: no kernel, its own step code)
+               and on the packed engine's kernel path. Each legacy
+               fingerprint equals the packed one (metrics aside: the
+               legacy layout has none); B1 and B2 launch no time in a
+               legacy run and once a step in a packed one; legacy
+               orthrus at K = 8 equals its K = 1 run. Step profiles of
+               orthrus and dgcc, legacy against packed in turns (eager
+               and graph K = 1), with the packed rewrite's ratio a step.
+               Then the latency oracle (``tools/torch_trace_export.py``)
+               on ORACLE_CELLS (1,000 rounds, no warmup): the cell
+               replayed densely on the card (one graph replay a round),
+               each commit's exact latency from slot transitions against
+               an arrival worked out independently (closed loop: the
+               admission round; open arrival: (tid // 64) * 200); the
+               events count the commits, the bucketed exact latencies
+               equal ``run_simulation``'s ``lat_hist``, its p50, p99 and
+               p999 the bucket edges of the exact rank statistics; one
+               Chrome trace per cell written under chiprun_out/.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -483,6 +509,35 @@ SWEEP_PROTOCOLS = (
 # contention axis, here with a finite commit target (the early exit)
 EXIT_PROTOCOLS = ("twopl_waitdie", "dgcc")
 SWEEP_MODE_ARGS = dict(devices=1, pipeline=2, early_exit=True)
+
+# slice 10, item 12 (phase 14): the legacy state layout held to the
+# packed engine on phase 11's cells at their depths (name, engine
+# kwargs, workload kwargs, depth), and the cells whose step profiles it
+# prints, legacy against packed
+LEGACY_CELLS = (
+    ("orthrus", ORTHRUS_FULL, YCSB_FULL, SIM_K),
+    ("deadlock_free", DF_FULL, YCSB_FULL, SIM_K),
+) + tuple((p, dict(protocol=p, n_exec=80), YCSB_FULL, SIM_K)
+          for p in DL_PROTOCOLS) + (
+    ("partitioned_store", PSTORE_FULL, YCSB_FIG6, SIM_K),
+    ("dgcc", DGCC_FULL, YCSB_FULL, SIM_K_BATCH),
+    ("quecc", QUECC_FULL, YCSB_FULL, SIM_K_BATCH),
+)
+LEGACY_PROFILED = ("orthrus", "dgcc")
+# the latency oracle (tests/test_metrics.py:222-296) at the paper's
+# width: fig4's widest wait-die cell closed loop (arrival = admission
+# round), and fig17's 40-lane deadlock_free under open arrival with no
+# admission policy (a 64-txn epoch every 200 rounds: arrival = (tid //
+# 64) * 200). Name, engine kwargs, workload kwargs, (epoch txns,
+# interval) or None for closed loop
+ORACLE_SIM = dict(max_rounds=1000, warmup_rounds=0, chunk_rounds=250,
+                  target_commits=10**9)
+ORACLE_CELLS = (
+    ("twopl_waitdie_closed", dict(protocol="twopl_waitdie", n_exec=80),
+     YCSB_FULL, None),
+    ("deadlock_free_open_i200", dict(FIG17_DF, epoch_interval_rounds=200),
+     YCSB_FIG16, (64, 200)),
+)
 
 
 def fingerprint(res, include_metrics: bool = False) -> dict:
@@ -2757,7 +2812,8 @@ def sweep_kernel(cfg, meta, device):
     orthrus' kernel path, B2 on a batch cell with predecessor edges)."""
     from repro_torch.kernels import use_kernel
 
-    if not use_kernel(cfg.kernel_impl, device):
+    if cfg.state_layout == "legacy" or not use_kernel(cfg.kernel_impl,
+                                                      device):
         return None
     if cfg.protocol == "orthrus":
         return "lock_grant"
@@ -3938,7 +3994,9 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
     torch.profiler the CUDA kernels per step (under replay CUPTI
     reports each kernel node of the graph), their device ms per step
     and the top kernels by device time; with ``watch``, the launches per
-    step of the kernels whose names hold it."""
+    step of the kernels whose names hold it. Returns label -> (wall ms,
+    CUDA kernels, device ms) a step; a path's graph column is labelled
+    "<label> graph K=1"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3954,15 +4012,11 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
         plan = engine.make_plan(cfg, workload)
         meta = engine.plan_meta(cfg, plan)
         p = plan_from_numpy(engine.plan_device(cfg, plan), device)
-        batch = cfg.is_batch_planned
-        if batch:
-            s = engine._batch_state0(cfg, plan, cfg.n_slots, device)
-            step = engine.make_batch_step(cfg, meta, device)
-        else:
-            s = engine._state0(cfg, plan.num_records, cfg.n_slots,
-                               meta.max_keys, device)
-            step = engine.make_step(cfg, meta, device)
-        runs[label] = dict(p=p, s=s, step=step, batch=batch, cfg=cfg,
+        s = sweep._initial_state(cfg, plan, meta, device)
+        step = sweep._build_step(cfg, meta, device)
+        # the stamp rebase of the packed lock-table engine's dispatch
+        rebase = cfg.state_layout == "packed" and not cfg.is_batch_planned
+        runs[label] = dict(p=p, s=s, step=step, rebase=rebase, cfg=cfg,
                            meta=meta)
 
     def run(label, n):
@@ -3974,8 +4028,8 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
             return
         for _ in range(n):
             st["s"] = st["step"](
-                st["p"], st["s"] if st["batch"] else engine.rebase_enq(
-                    st["s"]), r_end)
+                st["p"], engine.rebase_enq(st["s"]) if st["rebase"]
+                else st["s"], r_end)
             int(st["s"]["r"])
 
     def wall(label):
@@ -3996,6 +4050,7 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
         runs[f"{label} graph K=1"] = dict(g=g)
         run(f"{label} graph K=1", 8)
     walls = in_turns({label: label for label in runs}, wall, rounds=3)
+    readings_of = {}
     for label in runs:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -4009,6 +4064,7 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
             raise AssertionError(f"{name} {label}: the profiler saw no CUDA "
                                  f"kernel")
         readings, wall_ms = walls[label]
+        readings_of[label] = (wall_ms, n_kernels, dev_ms)
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
         watched = ""
         if watch:
@@ -4025,6 +4081,179 @@ def profile_steps(name, paths: dict, workload, device, warm: int = 100,
               f"kernels: " + "; ".join(
                   f"{e.key[:60]} {e.self_device_time_total / profiled:.1f} "
                   f"us ({e.count / profiled:.2f}/step)" for e in top))
+    return readings_of
+
+
+def legacy_cell(name, eng_kw, workload, sim, device) -> dict:
+    """One LEGACY_CELLS cell through ``run_simulation`` on the legacy
+    layout and on the packed engine's kernel path: equal fingerprints,
+    no metrics on the legacy run, no B1 or B2 launch in it, one a step
+    in the packed run where its path has the kernel. Returns the legacy
+    run and the packed run's launches by kernel."""
+    from repro_torch.kernels import use_kernel
+
+    ops = kernel_ops()
+    names = ("lock_grant", "dep_wavefront")
+    before = {n: ops[n].launches for n in names}
+    legacy = run_cell(f"legacy {name}", dict(eng_kw, state_layout="legacy"),
+                      workload, device, sim=sim,
+                      deadlock_aborts=name in DL_PROTOCOLS)
+    moved = {n: ops[n].launches - before[n] for n in names}
+    if any(moved.values()) or legacy.metrics is not None:
+        raise AssertionError(f"legacy {name}: kernel launches {moved}, "
+                             f"metrics {legacy.metrics}")
+    before = {n: ops[n].launches for n in names}
+    packed = run_cell(f"packed {name}", eng_kw, workload, device, sim=sim,
+                      deadlock_aborts=name in DL_PROTOCOLS)
+    launched = {n: ops[n].launches - before[n] for n in names}
+    kernel = ("lock_grant" if eng_kw["protocol"] == "orthrus" else
+              "dep_wavefront" if eng_kw["protocol"] in ("dgcc", "quecc")
+              else None) if use_kernel("auto", device) else None
+    steps = packed.raw["steps_executed"]
+    want = {n: steps if n == kernel else 0 for n in names}
+    if launched != want:
+        raise AssertionError(f"packed {name}: launches {launched}, want "
+                             f"{want}")
+    got, ref = fingerprint(legacy), fingerprint(packed)
+    if got != ref:
+        diff = {k: (got[k], ref.get(k)) for k in got if got[k] != ref.get(k)}
+        raise AssertionError(f"legacy {name} differs from packed: {diff}")
+    full = json.dumps(got, sort_keys=True)
+    print(f"legacy {name}: fingerprint identical to the packed engine's "
+          f"(sha256 {hashlib.sha256(full.encode()).hexdigest()[:16]}; "
+          f"commits {got['commits']}, aborts_deadlock "
+          f"{got['aborts_deadlock']}, steps {got['steps_executed']}); "
+          f"launches legacy {moved}, packed {launched}")
+    return dict(legacy=legacy, launched=launched)
+
+
+def latency_oracle(name, eng_kw, workload, epoch, device) -> None:
+    """The dense-replay latency oracle of ``tools/torch_trace_export.py``
+    on the card, checked as tests/test_metrics.py:226-271 does, and the
+    cell's Chrome trace written under chiprun_out/."""
+    import numpy as np
+
+    from repro_torch.core import engine, metrics
+    from tools.torch_trace_export import chrome_trace, replay_dense, txn_events
+
+    cfg = engine.EngineConfig(**eng_kw, **ORACLE_SIM)
+    res = run_cell(f"oracle {name}", eng_kw, workload, device,
+                   sim=ORACLE_SIM, deadlock_aborts=None)
+    t0 = time.time()
+    snaps, _state = replay_dense(cfg, workload, device=device)
+    replay_s = time.time() - t0
+    events = txn_events(snaps)
+    if not (len(events) == res.commits > 0):
+        raise AssertionError(f"oracle {name}: {len(events)} events for "
+                             f"{res.commits} commits")
+    # the round each tid first occupies a slot after: its admission round
+    tid_row = engine.C_TID
+    admit = {}
+    for r in range(len(snaps) - 1):
+        newly = set(snaps[r + 1][tid_row][snaps[r + 1][tid_row] >= 0]) - set(
+            snaps[r][tid_row][snaps[r][tid_row] >= 0])
+        for tid in newly:
+            admit.setdefault(int(tid), r)
+    lats, queued = [], 0
+    for tid, stamp, commit_r in events:
+        want = admit[tid] if epoch is None else (tid // epoch[0]) * epoch[1]
+        if stamp != want:
+            raise AssertionError(f"oracle {name}: txn {tid} stamped "
+                                 f"{stamp}, arrival {want}")
+        queued += admit[tid] > want
+        lats.append(commit_r - want)
+    lats = np.asarray(lats)
+    hist = np.bincount(metrics.bucket_index(lats),
+                       minlength=metrics.LAT_BUCKETS)
+    carried = [int(x) for x in res.metrics.lat_hist]
+    if np.any(lats < 0) or hist.tolist() != carried:
+        raise AssertionError(f"oracle {name}: exact histogram "
+                             f"{hist.tolist()} against {carried}")
+    edges = metrics.bucket_edges()
+    srt = np.sort(lats)
+    for q, got in ((0.5, res.metrics.p50), (0.99, res.metrics.p99),
+                   (0.999, res.metrics.p999)):
+        rank = max(int(np.ceil(q * len(lats))), 1)
+        want = int(edges[metrics.bucket_index(srt[rank - 1])])
+        if got != want:
+            raise AssertionError(f"oracle {name}: p{q * 100:g} {got}, the "
+                                 f"exact rank statistic's edge {want}")
+    trace = chrome_trace(snaps, cfg)
+    out = ROOT / "chiprun_out" / f"phase14_{name}.trace.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(traceEvents=trace, displayTimeUnit="ms")))
+    print(f"oracle {name}: {len(events)} commit events = commits, every "
+          f"arrival stamp as worked out ({queued} txns queued past their "
+          f"arrival), exact histogram = lat_hist, p50 {res.metrics.p50} / "
+          f"p99 {res.metrics.p99} / p999 {res.metrics.p999} rounds = the "
+          f"exact ranks' bucket edges (exact p50 {int(srt[len(srt) // 2])}, "
+          f"max {int(srt[-1])}); dense replay of {len(snaps) - 1} rounds in "
+          f"{replay_s:.3f} s ({(len(snaps) - 1) / replay_s:.1f} rounds/s, "
+          f"one graph replay a round); Chrome trace {len(trace)} events, "
+          f"{out.stat().st_size} bytes, {out.relative_to(ROOT)}")
+
+
+def main_path_slice10(device) -> dict:
+    """Phase 14: the legacy state layout and the latency oracle at the
+    paper's width. Returns the packed runs' lock_grant and dep_wavefront
+    launches."""
+    wls = {}
+    for _n, _e, wl_kw, _s in LEGACY_CELLS:
+        key = json.dumps(wl_kw, sort_keys=True)
+        if key not in wls:
+            wls[key] = make_full_workload(wl_kw)
+    for _n, _e, wl_kw, _ep in ORACLE_CELLS:
+        key = json.dumps(wl_kw, sort_keys=True)
+        if key not in wls:
+            wls[key] = make_full_workload(wl_kw)
+
+    def wl_of(wl_kw):
+        return wls[json.dumps(wl_kw, sort_keys=True)]
+
+    reset_launches()
+    counts = {"lock_grant": 0, "dep_wavefront": 0}
+    legacy = {}
+    for name, eng_kw, wl_kw, sim in LEGACY_CELLS:
+        out = legacy_cell(name, eng_kw, wl_of(wl_kw), sim, device)
+        legacy[name] = out["legacy"]
+        for n, v in out["launched"].items():
+            counts[n] += v
+    # K-fused dispatch on the legacy layout: guarded inner steps, no
+    # stamp rebase
+    ops = kernel_ops()
+    before = ops["lock_grant"].launches + ops["dep_wavefront"].launches
+    k8 = run_cell("legacy orthrus K=8", dict(ORTHRUS_FULL,
+                                              state_layout="legacy"),
+                  wl_of(YCSB_FULL), device, sim=SIM_K,
+                  rounds_per_dispatch=K_FUSED)
+    skip = {"wall_s_group"}
+    one = legacy["orthrus"]
+    if fingerprint(k8) != fingerprint(one) or {
+            k: v for k, v in k8.raw.items() if k not in skip} != {
+            k: v for k, v in one.raw.items() if k not in skip} or (
+            ops["lock_grant"].launches + ops["dep_wavefront"].launches
+            != before):
+        raise AssertionError("legacy orthrus at K = 8 differs from K = 1, "
+                             "or launched a kernel")
+    print(f"legacy orthrus K={K_FUSED}: fingerprint and counters identical "
+          f"to K=1, no kernel launch")
+    for name, eng_kw, wl_kw, epoch in ORACLE_CELLS:
+        latency_oracle(name, eng_kw, wl_of(wl_kw), epoch, device)
+    print(f"slice 10 path: kernel launches {counts} (the packed runs; the "
+          f"legacy runs none)")
+    for name, eng_kw, wl_kw, _sim in LEGACY_CELLS:
+        if name not in LEGACY_PROFILED:
+            continue
+        got = profile_steps(f"legacy vs packed {name}", {
+            "legacy": dict(eng_kw, state_layout="legacy"),
+            "packed kernel path": eng_kw}, wl_of(wl_kw), device, timed=100)
+        lg, pk = got["legacy graph K=1"], got["packed kernel path graph K=1"]
+        print(f"legacy vs packed {name}, graph K=1 per step: wall "
+              f"{lg[0]:.4f} / {pk[0]:.4f} ms (legacy/packed "
+              f"{lg[0] / pk[0]:.4f}), CUDA kernels {lg[1]:.1f} / "
+              f"{pk[1]:.1f}, device {lg[2]:.4f} / {pk[2]:.4f} ms "
+              f"(legacy/packed {lg[2] / pk[2]:.4f})")
+    return counts
 
 
 def gpu_name_and_power() -> str:
@@ -4143,6 +4372,10 @@ def main() -> int:
     rows[1]["launches"] += sweep_counts["dep_wavefront"]
     rows[2]["launches"] += phase("main path, slice 9: the other archs' "
                                  "serving", main_path_slice9, device)
+    legacy_counts = phase("main path, slice 10: the legacy layout and the "
+                          "latency oracle", main_path_slice10, device)
+    rows[0]["launches"] += legacy_counts["lock_grant"]
+    rows[1]["launches"] += legacy_counts["dep_wavefront"]
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -1,9 +1,14 @@
 """ORTHRUS core in PyTorch: workloads, planning, the round engine and
 the host loop, bit-exact with ``repro.core``.
 
-Ported so far, closed loop, through ``run_simulation``: ``orthrus`` (P1
-+ P2) and ``deadlock_free`` (P2 alone) on the lock-table engine, and the
-batch-planned ``dgcc``, ``quecc`` and ``scheduled``.
+Every protocol of ``engine.PROTOCOLS`` runs through ``run_simulation``
+and ``sweep.run_cells``, closed loop or under open epoch arrival with
+the overload layer, at any ``rounds_per_dispatch``: ``orthrus``,
+``deadlock_free``, the dynamic-2PL schemes and ``partitioned_store`` on
+the lock-table engine, and the batch-planned ``dgcc``, ``quecc`` and
+``scheduled``. ``EngineConfig(state_layout="legacy")`` runs the frozen
+pre-packed engine (``engine_legacy``), the conformance oracle of the
+packed one. ``protocols`` is the protocol registry.
 """
 
 from repro_torch.core.cost_model import CostModel

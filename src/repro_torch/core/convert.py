@@ -1,11 +1,13 @@
 """Carry plans and round states between numpy and the port's tensors.
 
 A plan dict (``plan_device``) and a round state (``_state0`` or a
-step's output) are dicts of arrays with the same keys and shapes in
-``repro.core.engine`` and here, with one exception: the port's state
-arrays of ``engine.DROP_ROW_ARRAYS`` (per record, per batch unit, per
-txn) carry one extra last row for dropped writes. These helpers add and strip it, so both packages
-can compute from one plan and one state.
+step's output, in the packed layout of ``engine`` or the legacy layout
+of ``engine_legacy``) are dicts of arrays with the same keys and shapes
+in ``repro.core`` and here, with one exception: the port's state arrays
+of ``engine.DROP_ROW_ARRAYS`` (per record, per batch unit, per txn)
+carry one extra last row for dropped writes. Both layouts name their
+arrays alike, so these helpers add and strip that row in either, and
+both packages can compute from one plan and one state.
 """
 
 from __future__ import annotations

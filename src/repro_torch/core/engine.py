@@ -22,8 +22,9 @@ budget and backoff mode of the overload layer:
   ``inter_batch_pipeline``, and the planner-lane model
   (``n_planner_lanes > 0``).
 
-Everything else raises ``NotImplementedError`` naming the slice of the
-port that brings it.
+``state_layout="legacy"`` runs the frozen pre-packed step builders of
+``repro_torch.core.engine_legacy`` (the conformance oracle) through the
+same host loop.
 
 State is a dict of int32 / bool tensors on one device, as in the
 reference, with one difference: the arrays of ``DROP_ROW_ARRAYS`` (the
@@ -353,14 +354,6 @@ class EngineConfig:
         )
 
 
-def check_ported(cfg: EngineConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.state_layout != "packed":
-        raise NotImplementedError(
-            'state_layout="legacy" is not ported yet (slice 8)'
-        )
-
-
 @dataclasses.dataclass(frozen=True)
 class PlanMeta:
     """Static (shape-only) description of a plan."""
@@ -640,7 +633,6 @@ def _state0(cfg: EngineConfig, num_records: int, T: int, K: int,
             device: torch.device | str = "cuda") -> dict:
     """Initial round state, with the extra dropped-write row on every
     per-record array (see the module docstring)."""
-    check_ported(cfg)
     R = num_records
     dev = torch.device(device)
 
@@ -772,7 +764,6 @@ def make_step(cfg: EngineConfig, meta: PlanMeta,
     of ``DROP_ROW_ARRAYS`` in place (``sweep.guard_step`` keeps them
     when the step must not run).
     """
-    check_ported(cfg)
     dev = torch.device(device)
     cm = cfg.cost
     T, K = cfg.n_slots, meta.max_keys
@@ -1775,7 +1766,6 @@ def _batch_state0(cfg: EngineConfig, plan: planner_lib.Plan, T: int,
                   device: torch.device | str = "cuda") -> dict:
     """Initial state of the batch engine, with the extra dropped-write
     row on ``done`` and ``txn_left`` (see the module docstring)."""
-    check_ported(cfg)
     dev = torch.device(device)
     sched = plan.sched
     N = sched.n_txns
@@ -1873,7 +1863,6 @@ def make_batch_step(cfg: EngineConfig, meta: PlanMeta,
     tensors) over the slot rows' edges when ``use_kernel(cfg.kernel_impl,
     device)``, else the dense per-slot gather.
     """
-    check_ported(cfg)
     dev = torch.device(device)
     cm = cfg.cost
     T = cfg.n_slots

@@ -10,10 +10,12 @@ The port of ``repro.core.sweep``:
   ``REPRO_SWEEP_RUNNER_CACHE``. A runner advances a state to a chunk
   bound ``r_end`` one dispatch at a time: while ``r < r_end``, one
   dispatch of ``cfg.dispatch_rounds`` (K) steps, the enqueue-stamp
-  rebase before the first (lock-table engine), every inner step after
-  the first guarded by ``r < r_end`` (:func:`guard_step`), as the
-  reference's K-round mega-dispatch. The state at every chunk boundary,
-  every counter included, is the same for every K.
+  rebase before the first (the packed lock-table engine), every inner
+  step after the first guarded by ``r < r_end`` (:func:`guard_step`),
+  as the reference's K-round mega-dispatch. The state at every chunk
+  boundary, every counter included, is the same for every K. The step
+  builders come from ``engine``, or from ``engine_legacy`` under
+  ``state_layout="legacy"`` (:func:`_step_module`).
 * On a CUDA device a runner captures one dispatch as a CUDA graph
   (static plan, state and ``r_end`` buffers) and replays it: one graph
   launch and one read of ``r`` per dispatch (and one as each chunk
@@ -159,10 +161,11 @@ def guard_step(step):
 
 def make_dispatch(cfg: EngineConfig, step):
     """One dispatch of ``cfg.dispatch_rounds`` steps, ``dispatch(p, s,
-    r_end)``: the enqueue-stamp rebase (lock-table engine; it bounds the
-    monotone ``enq_ctr`` and is bit-exact), one step, then K - 1 guarded
-    steps. The caller runs it only while ``r < r_end``."""
-    rebase = not cfg.is_batch_planned
+    r_end)``: the enqueue-stamp rebase (the packed lock-table engine; it
+    bounds the monotone ``enq_ctr`` and is bit-exact; the legacy layout
+    keeps the unrebased counter, as the reference), one step, then K - 1
+    guarded steps. The caller runs it only while ``r < r_end``."""
+    rebase = cfg.state_layout == "packed" and not cfg.is_batch_planned
     guarded = guard_step(step)
     inner = cfg.dispatch_rounds - 1
 
@@ -199,9 +202,20 @@ def _signature(d: dict) -> tuple:
     return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(d.items()))
 
 
+def _step_module(cfg: EngineConfig):
+    """The step-builder module for the config's state layout: the packed
+    [T, F] engine, or the frozen pre-rewrite engine
+    (``repro_torch.core.engine_legacy``), the conformance oracle."""
+    if cfg.state_layout == "legacy":
+        from repro_torch.core import engine_legacy
+
+        return engine_legacy
+    return engine_lib
+
+
 def _build_step(cfg: EngineConfig, meta: PlanMeta, device):
-    builder = (engine_lib.make_batch_step if cfg.is_batch_planned
-               else engine_lib.make_step)
+    mod = _step_module(cfg)
+    builder = mod.make_batch_step if cfg.is_batch_planned else mod.make_step
     return builder(cfg, meta, device)
 
 
@@ -572,8 +586,11 @@ class _Pending:
 
 
 def _counter_layout(state: dict) -> list[tuple[str, tuple]]:
-    keys = _SCALARS + ("cat",) + _METRIC_ARRAYS + tuple(
-        k for k in _OPT_SCALARS if k in state)
+    """The counters read at a chunk boundary: the metrics arrays and the
+    optional scalars only where the state carries them (the legacy
+    layout predates both)."""
+    keys = _SCALARS + ("cat",) + tuple(
+        k for k in _METRIC_ARRAYS + _OPT_SCALARS if k in state)
     return [(k, tuple(state[k].shape)) for k in keys]
 
 
@@ -636,27 +653,30 @@ def _result(cfg, plan, snap, wsnap, ri, wri, wall,
     admitted = delta("next_txn") - rejected - shed
     offered = engine_lib.offered_by_round(cfg, plan, ri) - (
         engine_lib.offered_by_round(cfg, plan, wri))
-    hist = snap["lat_hist"] - np.asarray(wsnap.get("lat_hist", 0), np.int64)
-    qgrid = (
-        np.arange(metrics_lib.QDEPTH_SAMPLES, dtype=np.int64) + 1
-    ) * engine_lib.qgrid_interval(cfg)
-    met = metrics_lib.build_metrics(
-        lat_hist=hist,
-        q_depth=snap["q_depth"],
-        q_inflight=snap["q_inflight"],
-        q_grid=qgrid,
-        breakdown=breakdown,
-        exec_lane_rounds=total_lane_rounds,
-        plan_busy_rounds=delta("plan_busy_int"),
-        plan_lane_rounds=cfg.n_planner_lanes * meas_rounds,
-        committed=commits,
-        admitted=admitted,
-        offered=offered,
-        rejected=rejected,
-        shed=shed,
-        timedout=delta("pol_timedout"),
-        sacrificed=delta("pol_sacrificed"),
-    )
+    met = None  # the legacy layout carries no metrics state
+    if "lat_hist" in snap:
+        hist = snap["lat_hist"] - np.asarray(wsnap.get("lat_hist", 0),
+                                             np.int64)
+        qgrid = (
+            np.arange(metrics_lib.QDEPTH_SAMPLES, dtype=np.int64) + 1
+        ) * engine_lib.qgrid_interval(cfg)
+        met = metrics_lib.build_metrics(
+            lat_hist=hist,
+            q_depth=snap["q_depth"],
+            q_inflight=snap["q_inflight"],
+            q_grid=qgrid,
+            breakdown=breakdown,
+            exec_lane_rounds=total_lane_rounds,
+            plan_busy_rounds=delta("plan_busy_int"),
+            plan_lane_rounds=cfg.n_planner_lanes * meas_rounds,
+            committed=commits,
+            admitted=admitted,
+            offered=offered,
+            rejected=rejected,
+            shed=shed,
+            timedout=delta("pol_timedout"),
+            sacrificed=delta("pol_sacrificed"),
+        )
     return SimResult(
         commits=commits,
         aborts_deadlock=delta("aborts_dl"),
@@ -681,10 +701,11 @@ def _result(cfg, plan, snap, wsnap, ri, wri, wall,
 
 
 def _initial_state(cfg: EngineConfig, plan, meta: PlanMeta, dev) -> dict:
+    mod = _step_module(cfg)
     if cfg.is_batch_planned:
-        return engine_lib._batch_state0(cfg, plan, cfg.n_slots, dev)
-    return engine_lib._state0(cfg, plan.num_records, cfg.n_slots,
-                              meta.max_keys, dev)
+        return mod._batch_state0(cfg, plan, cfg.n_slots, dev)
+    return mod._state0(cfg, plan.num_records, cfg.n_slots, meta.max_keys,
+                       dev)
 
 
 def _budget(cfg: EngineConfig) -> tuple:
@@ -716,8 +737,6 @@ class _GroupRun:
         n = len(plans)
         if n == 0 or n != len(cfgs):
             raise ValueError(f"{len(cfgs)} configs for {n} plans")
-        for c in cfgs:
-            engine_lib.check_ported(c)
         if len({c.trace_statics() for c in cfgs}) != 1:
             raise ValueError("grouped cells must share trace statics")
         if len({_budget(c) for c in cfgs}) != 1:
@@ -938,7 +957,6 @@ def simulate_eager(
     """:func:`simulate_plans` with every dispatch run eagerly and no
     CUDA graph (a fresh runner, not cached): the CPU's path, and on a
     card the oracle its graphs are held to."""
-    engine_lib.check_ported(cfg)
     dev = engine_lib.resolve_device(device)
     meta = engine_lib.plan_meta(cfg, plan)
     dispatch = ChunkRunner(cfg, meta, dev).dispatch

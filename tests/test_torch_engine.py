@@ -436,19 +436,6 @@ def test_config_properties_match_reference(kw):
     assert engine.qgrid_interval(mine) == ref_engine.qgrid_interval(ref)
 
 
-UNPORTED = [
-    dict(protocol="orthrus", n_exec=4, n_cc=2, state_layout="legacy"),
-]
-
-
-@pytest.mark.parametrize("kw", UNPORTED, ids=range(len(UNPORTED)))
-def test_unported_paths_raise(kw):
-    wl, _ = _workloads(YCSB)
-    with pytest.raises(NotImplementedError, match=r"slice \d"):
-        engine.run_simulation(engine.EngineConfig(**kw, **SIM), wl,
-                              device="cpu")
-
-
 # open arrival and the overload layer, which raised until slice 7's
 # item 7 ported them, and K-fused dispatch (item 8): each now runs
 # through both packages
