@@ -224,6 +224,45 @@ Phases (each raises on failure; the script then exits non-zero):
                equal ``run_simulation``'s ``lat_hist``, its p50, p99 and
                p999 the bucket edges of the exact rank statistics; one
                Chrome trace per cell written under chiprun_out/.
+ 15. main path, slice 11: llama4-maverick and per-shard MoE dispatch —
+               the simulator's cached runners freed first; B4 held and
+               timed (against SDPA with a boolean mask) on a chunked
+               layer at llama4's heads (40 query heads over 8 KV heads
+               of 128, bf16) at S = 9,000 on random inputs, where the
+               8,192-token chunk binds; then llama4-maverick-400b-a17b
+               at its published width, cut in depth only (LLAMA4_CUT:
+               one of its 12 pattern repeats, 4 layers = 3 chunked-local
+               + 1 global NoPE, MoE of 128 experts top-1 and a shared
+               expert on 2; d_model 5,120, vocab 202,048; 70.08 GB of
+               bf16 weights, ``check_fits`` before any allocation), with
+               random weights and a random 64-row early-fusion prefix
+               from SEED. B4 held on every layer of a real 3,000-token
+               prefill and timed at its chunked layer 0 and its NoPE
+               layer; B3's fused plan held on the MoE layers of that
+               prefill and of a real decode step at 8 slots and timed
+               against the plain plan, and its grouped form (G plans in
+               one launch) held bit for bit at G = 1, 2, 4, 8 on the
+               prefill's probabilities and at G = 4 on the decode
+               step's, timed against G one-plan launches and the plain
+               version beside the bound. Served through
+               ``ServingEngine.run(requests, extras)`` (phase 6's 16
+               prompts, 16 new tokens): all on the kernel path, the first
+               LLAMA4_PLAIN_REQUESTS on the plain path; B3 launched once
+               per MoE layer of every prefill and decode step and B4 once
+               per self-attention layer of every prefill, neither on the
+               plain path; first-token logits as phase 8 holds mixtral's
+               (B3 swapped for the plain plan bit-identical; the plain
+               path with the kernel path's plans within FIRST_LOGIT_TOL,
+               beside one bf16 unit of B4's outputs; the free-running
+               difference beside the top-1 agreement share). Then the
+               same weights with ``moe_dispatch_shards`` = 4: 8 requests
+               on both paths, the same launch counts, the prefills that
+               took the grouped plan and those that fell back, decode at
+               capacity 32, first-token logits against the unsharded
+               kernel path's within FIRST_LOGIT_TOL where no routed entry
+               was dropped. Tokens/s, prefill ms per request, decode ms
+               per step, the busy share of the first 2 kernel-path
+               requests and the peak card memory beside its estimate.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -256,7 +295,10 @@ positions, dispatch table and load in one launch) bit-equal to the plain
 plan on the router probabilities of every layer of that prefill and of
 a real decode step at 8 slots, and on random ones (N = 1 .. 65,536, E
 4, 8 and 128, top 1 and 2, rows with ties, capacities that drop and that
-do not), and its sorted form bit-equal to its plain version on those
+do not), its grouped form (per-shard dispatch: G plans in one launch)
+bit-equal to each group's plain plan on that prefill's layers in G = 1,
+2, 4, 8 shards and on random groups with ties, and its sorted form
+bit-equal to its plain version on those
 layers' sorted expert ids and on random sorted ids with a -1 tail (N =
 1 .. 2^20); in turns, it times the fused launch against the eager chain
 around the sorted form and the plain plan, and counts the CUDA kernels
@@ -273,6 +315,7 @@ one CUDA card and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -414,6 +457,25 @@ SLICE9_F32_TOL = 1e-3
 SLICE9_READINGS = {"qwen3-32b": 3000, "hymba-1.5b": 1400}
 # the kernel path's device busy share, over its first this many requests
 SLICE9_PROFILED = {"qwen3-32b": 4, "hymba-1.5b": 1}
+# slice 11 (phase 15): llama4-maverick-400b-a17b at its published width,
+# cut in depth only to one of its 12 pattern repeats (4 layers: 3
+# chunked-local of 8,192 + 1 global NoPE, MoE on 2; 35.04 B parameters,
+# 70.08 GB of bf16 weights and 0.54 GB of cache at 8 x 4,096: the whole
+# model's 795 GB need ten cards), the cell of phase 13 with its 16
+# prompts; plain path the first LLAMA4_PLAIN_REQUESTS
+LLAMA4 = "llama4-maverick-400b-a17b"
+LLAMA4_CUT = dict(pattern_repeats=1)
+LLAMA4_PLAIN_REQUESTS = 4
+LLAMA4_CHECK_SEQ = 3000  # the real prefill B3 and B4 are held on
+# B4 on a chunked layer where the 8,192-token chunk binds (random inputs
+# at llama4's heads, before the model is made: the plain version's f32
+# scores are 40 x 9,000^2)
+LLAMA4_BINDING_SEQ = 9000
+# per-shard dispatch: the same weights with 4 shards, the first 8 prompts
+LLAMA4_SHARDS = 4
+LLAMA4_SHARD_REQUESTS = 8
+# B3's grouped launch held and timed at these group counts
+GROUP_COUNTS = (1, 2, 4, 8)
 # slice 7: fig4's widest cells (benchmarks/figures.py:55-63: 80 lanes,
 # 64 hot) for the three dynamic-2PL schemes, and fig6's dual-partition
 # cell of the partitioned store (:157-170)
@@ -2104,24 +2166,93 @@ def cuda_kernels_per_call(fn, calls: int = 100) -> tuple:
             sorted({e.key[:50] for e in kern}))
 
 
-def plan_bound(n, num_experts, top_k, capacity):
+def plan_bound(n, num_experts, top_k, capacity, groups=1):
     """The plan's least time (ms, and what bounds it): the probabilities
     read once (4 B each), the table written once (8 B a slot) and the
     load (4 B an expert); per probability a compare and an insert step,
-    per entry a rank and a slot (about 2 E + 4 k operations a token)."""
-    n_bytes = n * num_experts * 4 + num_experts * capacity * 8 + \
-        num_experts * 4
+    per entry a rank and a slot (about 2 E + 4 k operations a token).
+    ``groups`` plans of ``n`` tokens each also write their counts (4 B
+    an expert)."""
+    n_bytes = groups * (n * num_experts * 4 + num_experts * capacity * 8
+                        + num_experts * 4 * (2 if groups > 1 else 1))
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * (2 * num_experts + 4 * top_k) / FP32_OPS_PER_S * 1e3
+    ops_ms = (groups * n * (2 * num_experts + 4 * top_k) / FP32_OPS_PER_S
+              * 1e3)
     return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
             else "operations", n_bytes)
+
+
+def largest_difference(pairs) -> float:
+    """The largest |got - want| over (got, want) tensor pairs (0: all
+    bit-equal; a NaN difference counts as inf, and a pair that differs
+    with no difference to show, as -0.0 against 0.0, as 1.0)."""
+    import torch
+
+    e = 0.0
+    for got, want in pairs:
+        if not torch.equal(got, want):
+            e = max(e, float((got.double() - want.double()).abs()
+                             .nan_to_num(float("inf")).max()) or 1.0)
+    return e
+
+
+def hold_plan(label, probs, top_k, capacity) -> float:
+    """B3's fused plan against the plain plan: the largest difference
+    (0: bit-equal)."""
+    import torch
+
+    from repro_torch.kernels.moe_dispatch import ops
+    from repro_torch.models import moe
+
+    got = ops.moe_dispatch_plan_cuda(probs, top_k=top_k, capacity=capacity)
+    want = moe.plan_dispatch(probs, top_k, capacity)
+    torch.cuda.synchronize()
+    e = largest_difference((got[f], want[f]) for f in want)
+    if e:
+        print(f"BAD moe_dispatch_plan {label}: differs by {e}")
+    return e
+
+
+def hold_grouped(label, probs, groups, top_k, capacity) -> float:
+    """B3's grouped launch over ``probs`` [N, E] cut into ``groups`` shards
+    of N / groups tokens, against its plain version (each group's plain
+    plan): the largest difference over the slot table, the weights, the
+    loads and the counts (0: bit-equal). One group is also held to the
+    one-plan launch. Prints a line where it differs."""
+    import torch
+
+    from repro_torch.kernels.moe_dispatch import ops
+    from repro_torch.kernels.moe_dispatch.ref import (
+        moe_dispatch_plan_grouped_ref,
+    )
+
+    pg = probs.view(groups, -1, probs.shape[-1])
+    before = ops.launches
+    got = ops.moe_dispatch_plan_cuda(pg, top_k=top_k, capacity=capacity)
+    torch.cuda.synchronize()
+    if ops.launches != before + 1:
+        raise AssertionError("a grouped plan is not one launch")
+    want = moe_dispatch_plan_grouped_ref(pg, top_k, capacity)
+    pairs = [(got[f], want[f]) for f in want]
+    if groups == 1:
+        one = ops.moe_dispatch_plan_cuda(probs, top_k=top_k,
+                                         capacity=capacity)
+        pairs += [(got[f][0], one[f]) for f in one]
+    e = largest_difference(pairs)
+    if e:
+        print(f"BAD moe_dispatch_plan grouped, {label}, G={groups}: differs "
+              f"by {e}")
+    return e
 
 
 def check_moe_dispatch(device, caps) -> dict:
     """Phase 2: B3's fused plan bit-equal to the plain plan at every layer
     of a real full-width mixtral prefill and decode step and on random
     router probabilities (N = 1 .. 65,536, E 4, 8 and 128, top 1 and 2,
-    rows with ties, capacities that drop and that do not); the sorted
+    rows with ties, capacities that drop and that do not); its grouped
+    form (G plans in one launch) bit-equal to each group's plain plan on
+    those prefill layers in GROUP_COUNTS shards and on random groups; the
+    sorted
     form bit-equal to its plain version on those layers' sorted expert
     ids and on random ids; in turns, the fused launch against the chain
     around the sorted form and the plain plan (graph replay and
@@ -2134,22 +2265,6 @@ def check_moe_dispatch(device, caps) -> dict:
     from repro_torch.models import moe
 
     err = 0
-
-    def hold_plan(label, probs, top_k, capacity):
-        """The fused plan against the plain plan: the largest difference
-        (0: bit-equal)."""
-        got = ops.moe_dispatch_plan_cuda(probs, top_k=top_k,
-                                         capacity=capacity)
-        want = moe.plan_dispatch(probs, top_k, capacity)
-        torch.cuda.synchronize()
-        e = 0.0
-        for f in ("slot_token", "slot_weight", "load"):
-            if not torch.equal(got[f], want[f]):
-                e = max(e, float((got[f].double() - want[f].double()).abs()
-                                 .nan_to_num(float("inf")).max()) or 1.0)
-        if e:
-            print(f"BAD moe_dispatch_plan {label}: differs by {e}")
-        return e
 
     def hold_sorted(ids, capacity, num_experts):
         got = ops.dispatch_positions_cuda(ids, capacity, num_experts)
@@ -2198,6 +2313,29 @@ def check_moe_dispatch(device, caps) -> dict:
           f"4, 8, 128; top 1, 2; rows with and without ties; capacities "
           f"that drop and that do not): bit-equal to plan_dispatch's "
           f"(max_abs_err {err})")
+    # the grouped form: mixtral's prefill layers cut in G shards at the
+    # shards' capacity, and random groups with ties
+    e = 0.0
+    for i, (p, k, _c) in enumerate(caps["probs"]):
+        for G in GROUP_COUNTS:
+            cap = moe.capacity_for(p.shape[0] // G, k, p.shape[1], 1.25,
+                                   floor=32)
+            e = max(e, hold_grouped(f"mixtral layer {i}", p, G, k, cap))
+    for G in (1, 3, 8):
+        for n, num_experts, top_k in ((2, 128, 1), (375, 128, 1),
+                                      (1500, 8, 2), (9000, 8, 2)):
+            probs = random_router_probs(G * n, num_experts, G + n, device,
+                                        ties=True)
+            for capacity in (32, 128, n):
+                e = max(e, hold_grouped(f"random n={n} E={num_experts} "
+                                        f"top {top_k} capacity {capacity}",
+                                        probs, G, top_k, capacity))
+    print(f"moe_dispatch_plan grouped form: the {len(caps['probs'])} layers "
+          f"of the mixtral prefill in G = {GROUP_COUNTS} shards, and random "
+          f"groups with ties (G = 1, 3, 8; n = 2 .. 9,000; E 8, 128): "
+          f"slot table, weights, loads and counts bit-equal to each group's "
+          f"plain plan, G = 1 to the one-plan launch (max_abs_err {e})")
+    err = max(err, e)
     for n in (1, 16, 1000, 1023, 1024, 1025, 3000, 6000, 65536, 1 << 20):
         for num_experts in (8, 4096):
             ids = random_expert_ids(n, num_experts, n + num_experts, device)
@@ -3233,6 +3371,59 @@ def first_token_logits(model, device, outputs, tol=FIRST_LOGIT_TOL,
         raise AssertionError(f"first-token logits differ by {worst} > {tol}")
 
 
+@contextlib.contextmanager
+def planner(name, make):
+    """``repro_torch.models.moe``'s ``name`` (``moe_dispatch_plan``, B3's
+    wrapper, or ``plan_dispatch``, its plain version) replaced by
+    ``make(original)`` inside the block."""
+    from repro_torch.models import moe
+
+    orig = getattr(moe, name)
+    setattr(moe, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(moe, name, orig)
+
+
+def recording(rec):
+    """A planner that appends (plan, each token's chosen experts sorted
+    [N, k], capacity) to ``rec``, a call at a time."""
+    from repro_torch.models import moe
+
+    def wrap(orig):
+        def recorded(probs, *, top_k, capacity):
+            plan = orig(probs, top_k=top_k, capacity=capacity)
+            choice = moe.route(probs.reshape(-1, probs.shape[-1]),
+                               top_k)[1].sort(-1).values
+            rec.append((plan, choice, capacity))
+            return plan
+        return recorded
+    return wrap
+
+
+def plain_plan(_orig):
+    """A planner that is B3's plain version."""
+    from repro_torch.models import moe
+
+    return lambda probs, *, top_k, capacity: moe.plan_dispatch(
+        probs, top_k=top_k, capacity=capacity)
+
+
+def replaying(plans):
+    """A planner that hands back ``recording``'s plans in turn."""
+    it = iter(plans)
+
+    def wrap(_orig):
+        def replayed(probs, *, top_k, capacity):
+            plan, _choice, cap = next(it)
+            if cap != capacity:
+                raise AssertionError("replayed plan of another capacity")
+            return plan
+        return replayed
+    return wrap
+
+
 def mixtral_first_token_logits(model, device, outputs, tol=FIRST_LOGIT_TOL,
                                n_requests=SERVE_REQUESTS) -> None:
     """The first ``n_requests`` requests' prefill logits on the kernel path
@@ -3257,53 +3448,16 @@ def mixtral_first_token_logits(model, device, outputs, tol=FIRST_LOGIT_TOL,
       changes the token's experts, and its logits move by far more than
       a rounding; the difference over all prompts is printed beside.
     """
-    import contextlib
     import dataclasses
 
     import torch
 
     from repro_torch.models import model as M
-    from repro_torch.models import moe
 
     cfg, params = model
     n_layers = cfg.num_layers
     ample = dataclasses.replace(
         cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
-
-    @contextlib.contextmanager
-    def planner(name, fn):
-        orig = getattr(moe, name)
-        setattr(moe, name, fn(orig))
-        try:
-            yield
-        finally:
-            setattr(moe, name, orig)
-
-    def recording(rec):
-        def wrap(orig):
-            def recorded(probs, *, top_k, capacity):
-                plan = orig(probs, top_k=top_k, capacity=capacity)
-                choice = moe.route(probs, top_k)[1].sort(-1).values
-                rec.append((plan, choice, capacity))
-                return plan
-            return recorded
-        return wrap
-
-    def plain_plan(_orig):
-        return lambda probs, *, top_k, capacity: moe.plan_dispatch(
-            probs, top_k=top_k, capacity=capacity)
-
-    def replaying(plans):
-        it = iter(plans)
-
-        def wrap(_orig):
-            def replayed(probs, *, top_k, capacity):
-                plan, _choice, cap = next(it)
-                if cap != capacity:
-                    raise AssertionError("replayed plan of another capacity")
-                return plan
-            return replayed
-        return wrap
 
     def first(prompt, impl, c=cfg):
         lg, _ = M.prefill(params, c, prompt, kernel_impl=impl)
@@ -3684,11 +3838,12 @@ def flash_attention_error(q, k, v, kind, window) -> tuple:
             bool(torch.isfinite(got).all()))
 
 
-def attention_reading(label, q, k, v, kind, window) -> None:
+def attention_reading(label, q, k, v, kind, window, plain=True) -> dict:
     """Phase 2's reading at a new shape: B4 held to its plain version,
     then device ms in turns (each timed twice, the order reversed the
-    second time) of the kernel, the plain version and
-    F.scaled_dot_product_attention, beside the bound."""
+    second time) of the kernel, the plain version (unless ``plain`` is
+    False) and F.scaled_dot_product_attention, beside the bound. Returns
+    the mean ms by name, the bound and its error."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -3702,6 +3857,8 @@ def attention_reading(label, q, k, v, kind, window) -> None:
            "plain": lambda: flash_attention_ref(q, k, v, kind=kind,
                                                 window=window),
            f"SDPA ({how})": lib}
+    if not plain:
+        del fns["plain"]
     turns = {name: [] for name in fns}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
@@ -3717,8 +3874,11 @@ def attention_reading(label, q, k, v, kind, window) -> None:
           + f"; bound {bound_ms:.6f} ms ({bound_by}); the kernel at "
           f"{bound_ms / ms['kernel']:.4f} of its bound, "
           f"{ms['kernel'] / ms[f'SDPA ({how})']:.3f}x SDPA, "
-          f"{ms['plain'] / ms['kernel']:.2f}x faster than plain (kernels of "
-          f"SDPA: {cuda_kernel_names(lib)})")
+          + (f"{ms['plain'] / ms['kernel']:.2f}x faster than plain"
+             if plain else "plain not timed (its f32 scores)")
+          + f" (kernels of SDPA: {cuda_kernel_names(lib)})")
+    return dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by, err=err,
+                sdpa=f"SDPA ({how})")
 
 
 def slice9_run(model, device, impl, reqs, extras) -> dict:
@@ -3840,6 +4000,42 @@ def f32_paths_agree(model, device, req, extras) -> None:
                              f"differ by {diff} > {SLICE9_F32_TOL}")
 
 
+def check_serving_run(label, cfg, impl, run, lens, want) -> None:
+    """One of ``slice9_run``'s runs printed and held: every request
+    answered in one prefill each, the launches ``want(stats)`` gives on
+    the kernel path (every other kernel's 0) and none on the plain path,
+    each output inside the vocabulary and the token budget, and its first
+    token the argmax of its prefill's finite logits."""
+    import torch
+
+    st = run["stats"]
+    expect = {k: 0 for k in run["launches"]}
+    if impl == "auto":
+        expect.update(want(st))
+    print(f"{label} serving kernel_impl={impl} ({SERVE_SLOTS} slots of "
+          f"{SERVE_CACHE_LEN}): {run['done']} of {run['n']} requests "
+          f"answered, {run['tokens']} tokens in {run['wall']:.3f} s "
+          f"({run['tokens'] / run['wall']:.2f} tokens/s); prefill "
+          f"{st['prefill_s'] / st['prefills'] * 1e3:.3f} ms per request "
+          f"({st['prefills']} prompts of {lens[0]}-{lens[1]} tokens, "
+          f"{run['prompt']} in all), decode "
+          f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms per step "
+          f"({st['decode_steps']} steps); launches {run['launches']}")
+    if (run["done"] != run["n"] or st["prefills"] != run["n"]
+            or run["launches"] != expect):
+        raise AssertionError(f"{label} kernel_impl={impl}: {run['done']} "
+                             f"answered, {st['prefills']} prefills, "
+                             f"launches {run['launches']}, want {expect}")
+    for rid, out in run["outputs"].items():
+        if not (1 <= len(out) <= SLICE9_NEW_TOKENS
+                and all(0 <= t < cfg.vocab_size for t in out)
+                and bool(torch.isfinite(run["first"][rid]).all())
+                and int(torch.argmax(run["first"][rid])) == out[0]):
+            raise AssertionError(f"{label} kernel_impl={impl} request "
+                                 f"{rid}: output {out}, or its first token "
+                                 f"is not its logits' argmax")
+
+
 def slice9_cell(arch, n_req, lens, n_plain, device) -> int:
     """One arch's serving cell at its published width (random weights
     from SEED; extras from SEED; llama-3.2-vision's gates set to
@@ -3900,32 +4096,8 @@ def slice9_cell(arch, n_req, lens, n_plain, device) -> int:
             "jnp": slice9_run(model, device, "jnp", requests()[:n_plain],
                               extras)}
     for impl, run in runs.items():
-        st = run["stats"]
-        want = {k: 0 for k in run["launches"]}
-        if impl == "auto":
-            want["flash_attention"] = per_prefill * st["prefills"]
-        print(f"{arch} serving kernel_impl={impl} ({SERVE_SLOTS} slots of "
-              f"{SERVE_CACHE_LEN}): {run['done']} of {run['n']} requests "
-              f"answered, {run['tokens']} tokens in {run['wall']:.3f} s "
-              f"({run['tokens'] / run['wall']:.2f} tokens/s); prefill "
-              f"{st['prefill_s'] / st['prefills'] * 1e3:.3f} ms per request "
-              f"({st['prefills']} prompts of {lens[0]}-{lens[1]} tokens, "
-              f"{run['prompt']} in all), decode "
-              f"{st['decode_s'] / st['decode_steps'] * 1e3:.3f} ms per step "
-              f"({st['decode_steps']} steps); launches {run['launches']}")
-        if (run["done"] != run["n"] or st["prefills"] != run["n"]
-                or run["launches"] != want):
-            raise AssertionError(f"{arch} kernel_impl={impl}: {run['done']} "
-                                 f"answered, {st['prefills']} prefills, "
-                                 f"launches {run['launches']}, want {want}")
-        for rid, out in run["outputs"].items():
-            if not (1 <= len(out) <= SLICE9_NEW_TOKENS
-                    and all(0 <= t < cfg.vocab_size for t in out)
-                    and bool(torch.isfinite(run["first"][rid]).all())
-                    and int(torch.argmax(run["first"][rid])) == out[0]):
-                raise AssertionError(f"{arch} kernel_impl={impl} request "
-                                     f"{rid}: output {out}, or its first "
-                                     f"token is not its logits' argmax")
+        check_serving_run(cfg.name, cfg, impl, run, lens, lambda st: {
+            "flash_attention": per_prefill * st["prefills"]})
     k, j = runs["auto"], runs["jnp"]
     worst = max(float((k["first"][rid] - j["first"][rid]).abs().max())
                 for rid in j["first"])
@@ -4256,6 +4428,447 @@ def main_path_slice10(device) -> dict:
     return counts
 
 
+def llama4_captures(model, extras, device) -> dict:
+    """The kernel path's inputs at every layer of llama4-maverick (the
+    cut): B4's (q, k, v, kind, window) and B3's plan's (router
+    probabilities, top_k, capacity) of one LLAMA4_CHECK_SEQ-token prefill
+    with the early-fusion prefix, and B3's of one decode step at
+    SERVE_SLOTS slots (after prefills of the first 8 prompts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    cfg, params = model
+    prompt = np.random.default_rng(SEED + 1).integers(
+        2, cfg.vocab_size, LLAMA4_CHECK_SEQ)
+
+    def prefill():
+        M.prefill(params, cfg, torch.as_tensor(prompt, device=device)[None],
+                  extras, kernel_impl="auto")
+
+    def decode_step():
+        eng = ServingEngine(cfg, ServeConfig(batch_slots=SERVE_SLOTS,
+                                             cache_len=SERVE_CACHE_LEN),
+                            params, device=device, kernel_impl="auto")
+        eng.run([Request(rid=r.rid, prompt=r.prompt, max_new_tokens=2)
+                 for r in serve_requests(cfg)[:SERVE_SLOTS]], extras)
+
+    def every(*_args):
+        return True
+
+    def at_decode(x, *_args):
+        return x.shape[0] == SERVE_SLOTS
+
+    attn, probs = capture_calls(
+        [(layers, "flash_attention", every),
+         (moe, "moe_dispatch_plan", every)], prefill)
+    dec_probs, = capture_calls(
+        [(moe, "moe_dispatch_plan", at_decode)], decode_step)
+    specs = TF.layer_specs(cfg)
+    want = dict(attn=sum(TF.has_self_attention(s) for s in specs),
+                probs=sum(s.is_moe for s in specs))
+    want["dec_probs"] = want["probs"]
+    out = dict(attn=attn, probs=probs, dec_probs=dec_probs)
+    for name, calls in out.items():
+        if len(calls) != want[name]:
+            raise AssertionError(f"{cfg.name} capture {name}: {len(calls)} "
+                                 f"calls, not {want[name]}")
+    print(f"{cfg.name} captures: a {LLAMA4_CHECK_SEQ}-token prefill with "
+          f"its {cfg.early_fusion_tokens}-row early-fusion prefix (B3's "
+          f"plan over probabilities {tuple(probs[0][0].shape)}, top "
+          f"{probs[0][1]}, capacity {probs[0][2]}, {len(probs)} MoE layers; "
+          f"B4 q {tuple(attn[0][0].shape)}, k {tuple(attn[0][1].shape)}, "
+          f"kinds {[c[3] for c in attn]}) and a decode step at "
+          f"{SERVE_SLOTS} slots (probabilities "
+          f"{tuple(dec_probs[0][0].shape)}, capacity {dec_probs[0][2]})")
+    return out
+
+
+def llama4_b4_readings(calls) -> float:
+    """B4 held to its plain version on every layer of the real prefill,
+    and read (phase 2's reading) at its chunked layer 0, where the
+    8,192-token chunk does not bind at LLAMA4_CHECK_SEQ, and at its global
+    NoPE layer. Returns the largest error."""
+    errs = [flash_attention_error(*c) for c in calls]
+    print(f"flash_attention: the {len(calls)} layers of a real "
+          f"{LLAMA4_CHECK_SEQ}-token {LLAMA4} prefill: max_abs_err "
+          f"{max(e for e, _r, _f in errs)}, at most "
+          f"{max(r for _e, r, _f in errs)} of the tolerance")
+    if not all(r <= 1 and f for _e, r, f in errs):
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version on {LLAMA4}'s layers")
+    for kind, what in (("chunked", "chunked-local"), ("full", "global NoPE")):
+        i = next(i for i, c in enumerate(calls) if c[3] == kind)
+        attention_reading(f"{LLAMA4} {what} layer {i} of a real "
+                          f"{LLAMA4_CHECK_SEQ}-token prefill", *calls[i])
+    return max(e for e, _r, _f in errs)
+
+
+def llama4_b3_readings(caps, power) -> float:
+    """B3 at llama4's shape (E 128, top 1): the fused plan bit-equal to the
+    plain plan on every MoE layer of the real prefill and decode step,
+    timed in turns against the plain plan; the grouped launch at
+    GROUP_COUNTS on the prefill's first MoE layer cut into shards (the
+    shards' capacity), and at LLAMA4_SHARDS on the decode step's, held
+    bit for bit and timed in turns against as many one-plan launches and
+    the plain version, beside the bound. Returns the largest error (0)."""
+    from repro_torch.kernels.moe_dispatch import ops
+    from repro_torch.kernels.moe_dispatch.ref import (
+        moe_dispatch_plan_grouped_ref,
+    )
+    from repro_torch.models import moe
+
+    err = 0.0
+    for name, key in ((f"the {LLAMA4_CHECK_SEQ}-token prefill", "probs"),
+                      (f"the decode step at {SERVE_SLOTS} slots",
+                       "dec_probs")):
+        calls = caps[key]
+        e = max(hold_plan(f"{LLAMA4} {name}, MoE layer {i}", *c)
+                for i, c in enumerate(calls))
+        err = max(err, e)
+        probs, top_k, capacity = calls[0]
+        E = probs.shape[1]
+        res = in_turns({
+            "fused launch": lambda: ops.moe_dispatch_plan_cuda(
+                probs, top_k=top_k, capacity=capacity),
+            "plain plan": lambda: moe.plan_dispatch(probs, top_k, capacity),
+        }, graph_ms)
+        print_turns(f"moe_dispatch plan, device time (graph replay), "
+                    f"{LLAMA4} first MoE layer of {name}", res)
+        bound_ms, bound_by, n_bytes = plan_bound(probs.shape[0], E, top_k,
+                                                 capacity)
+        ms = res["fused launch"][1]
+        print(f"moe_dispatch fused plan, {LLAMA4} {name} (N "
+              f"{probs.shape[0]}, E {E}, top {top_k}, capacity {capacity}; "
+              f"{power}): the {len(calls)} MoE layers bit-equal to "
+              f"plan_dispatch's (max_abs_err {e}); {ms:.6f} ms, bound "
+              f"{bound_ms:.9f} ms ({bound_by}, {n_bytes} B), at "
+              f"{bound_ms / ms:.6f} of its bound; plain plan "
+              f"{res['plain plan'][1]:.6f} ms")
+        counts = GROUP_COUNTS if key == "probs" else (LLAMA4_SHARDS,)
+        for G in counts:
+            n_loc = probs.shape[0] // G
+            cap = moe.capacity_for(n_loc, top_k, E, 1.25, floor=32)
+            err = max(err, hold_grouped(f"{LLAMA4} {name}", probs, G, top_k,
+                                        cap))
+            pg = probs.view(G, n_loc, E)
+
+            def singles(pg=pg, cap=cap):
+                for g in range(pg.shape[0]):
+                    ops.moe_dispatch_plan_cuda(pg[g], top_k=top_k,
+                                               capacity=cap)
+
+            res = in_turns({
+                "grouped launch": lambda pg=pg, cap=cap:
+                    ops.moe_dispatch_plan_cuda(pg, top_k=top_k,
+                                               capacity=cap),
+                f"{G} one-plan launches": singles,
+                "plain (per group)": lambda pg=pg, cap=cap:
+                    moe_dispatch_plan_grouped_ref(pg, top_k, cap),
+            }, graph_ms)
+            bound_ms, bound_by, n_bytes = plan_bound(n_loc, E, top_k, cap,
+                                                     groups=G)
+            ms = res["grouped launch"][1]
+            print_turns(f"moe_dispatch grouped plan, G={G} (n {n_loc}, E "
+                        f"{E}, top {top_k}, capacity {cap}), {LLAMA4} "
+                        f"{name}", res)
+            print(f"moe_dispatch grouped plan, {LLAMA4} {name}, G={G}: "
+                  f"bit-equal to each group's plain plan; {ms:.6f} ms "
+                  f"against {G} one-plan launches' "
+                  f"{res[f'{G} one-plan launches'][1]:.6f} ms and the plain "
+                  f"version's {res['plain (per group)'][1]:.6f} ms; bound "
+                  f"{bound_ms:.9f} ms ({bound_by}, {n_bytes} B), at "
+                  f"{bound_ms / ms:.6f} of it ({power})")
+    if err:
+        raise AssertionError(f"moe_dispatch disagrees with its plain version "
+                             f"at {LLAMA4}'s shape (max_abs_err {err})")
+    return err
+
+
+def llama4_first_token_logits(model, device, reqs, extras, runs) -> None:
+    """The first-token logits of ``reqs`` (the plain path's requests), held
+    as mixtral's are: the kernel path with the plain plan in B3's place
+    bit-identical (B3 is exact); the plain path with the kernel path's
+    plans (routing and drops held fixed) within FIRST_LOGIT_TOL, printed
+    beside how far one bf16 unit of B4's outputs moves the kernel path's;
+    both paths free-running, each with its own routing, their difference
+    printed beside the share of (token, MoE layer) top-1 choices they
+    agree on (no floor is held: no reading has shown one yet)."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    cfg, params = model
+
+    def first(prompt, impl):
+        lg, _ = M.prefill(params, cfg, prompt, extras, kernel_impl=impl)
+        lg = lg[0, -1].float()
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"kernel_impl={impl}: non-finite logits")
+        return lg
+
+    forced = free = scale = 0.0
+    agree = routed = 0
+    base = {}
+    for req in reqs:
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device=device)[None]
+        kern, plain = [], []
+        with planner("moe_dispatch_plan", recording(kern)):
+            lg_kern = first(prompt, "auto")
+        with planner("moe_dispatch_plan", plain_plan):
+            lg_b3_plain = first(prompt, "auto")
+        with planner("plan_dispatch", replaying(kern)):
+            lg_forced = first(prompt, "jnp")
+        with planner("plan_dispatch", recording(plain)):
+            lg_free = first(prompt, "jnp")
+        for impl, lg in (("auto", lg_kern), ("jnp", lg_free)):
+            if int(torch.argmax(lg)) != runs[impl]["outputs"][req.rid][0]:
+                raise AssertionError(f"{LLAMA4} request {req.rid} "
+                                     f"kernel_impl={impl}: the engine's "
+                                     f"first token is not the prefill's "
+                                     f"argmax")
+        if not torch.equal(lg_kern, lg_b3_plain):
+            raise AssertionError(f"{LLAMA4} request {req.rid}: the kernel "
+                                 f"path's logits change when the plain plan "
+                                 f"takes B3's place")
+        base[req.rid] = lg_kern
+        forced = max(forced, float((lg_forced - lg_kern).abs().max()))
+        free = max(free, float((lg_free - lg_kern).abs().max()))
+        scale = max(scale, float(lg_kern.abs().max()))
+        for (_p, c_k, _c), (_q, c_p, _d) in zip(kern, plain):
+            agree += int((c_k == c_p).all(-1).sum())
+            routed += c_k.shape[0]
+    moved = attention_rounding_sensitivity(model, device, reqs, extras, base)
+    print(f"{LLAMA4} first-token logits over the {len(reqs)} prompts "
+          f"(largest |logit| {scale}): the kernel path with the plain plan "
+          f"in B3's place bit-identical; the plain path with the kernel "
+          f"path's plans: max |difference| {forced} (tolerance "
+          f"{FIRST_LOGIT_TOL}); the kernel path against itself with B4's "
+          f"outputs moved by one bf16 unit: {moved}; both paths "
+          f"free-running: max |difference| {free}, the same top-"
+          f"{cfg.experts_per_token} expert for {agree / routed:.6f} of the "
+          f"{routed} (token, MoE layer) pairs")
+    if not forced <= FIRST_LOGIT_TOL:
+        raise AssertionError(f"{LLAMA4}: first-token logits with the same "
+                             f"plans differ by {forced} > {FIRST_LOGIT_TOL}")
+
+
+def llama4_shards(model, device, extras, requests, per_run) -> dict:
+    """The same weights with per-shard dispatch (``moe_dispatch_shards``
+    LLAMA4_SHARDS, a config change, no second model): the first
+    LLAMA4_SHARD_REQUESTS requests on both paths, B3 once per MoE layer of
+    every prefill and decode step whether grouped or not (a prompt length
+    that the shards do not divide plans once), B4 once per self-attention
+    layer of every prefill; each prefill's plans recorded on both configs:
+    grouped or not, drops; the first-token logits held to the unsharded
+    kernel path's within FIRST_LOGIT_TOL where neither dropped a routed
+    entry, printed otherwise; a decode step's plans at capacity 32.
+    Returns the kernel path's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+    cfg, params = model
+    cfg4 = dataclasses.replace(cfg, moe_dispatch_shards=LLAMA4_SHARDS)
+    model4 = (cfg4, params)
+    reqs = requests()[:LLAMA4_SHARD_REQUESTS]
+    runs = {impl: slice9_run(model4, device, impl, reqs, extras)
+            for impl in ("auto", "jnp")}
+    for impl, run in runs.items():
+        check_serving_run(f"{LLAMA4} with {LLAMA4_SHARDS} dispatch shards",
+                          cfg4, impl, run, SERVE_PROMPT_LENS, per_run)
+
+    def kept_all(rec):
+        return all(int((plan["slot_token"] >= 0).sum()) == choice.numel()
+                   for plan, choice, _cap in rec)
+
+    grouped = held = 0
+    worst_held = worst_dropped = 0.0
+    per_prompt = []
+    for req in reqs:
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device=device)[None]
+        logits, recs = {}, {}
+        for shards, c in ((LLAMA4_SHARDS, cfg4), (0, cfg)):
+            recs[shards] = []
+            with planner("moe_dispatch_plan", recording(recs[shards])):
+                lg, _ = M.prefill(params, c, prompt, extras,
+                                  kernel_impl="auto")
+            logits[shards] = lg[0, -1].float()
+        is_grouped = len(req.prompt) % LLAMA4_SHARDS == 0
+        shapes = {tuple(plan["slot_token"].shape)
+                  for plan, _c, _cap in recs[LLAMA4_SHARDS]}
+        if {len(s) for s in shapes} != {2 if is_grouped else 1}:
+            raise AssertionError(f"{LLAMA4} request {req.rid} of "
+                                 f"{len(req.prompt)} tokens planned as "
+                                 f"{shapes}")
+        grouped += is_grouped
+        if int(torch.argmax(logits[LLAMA4_SHARDS])) != runs["auto"][
+                "outputs"][req.rid][0]:
+            raise AssertionError(f"{LLAMA4} request {req.rid}: the sharded "
+                                 f"engine's first token is not its "
+                                 f"prefill's argmax")
+        diff = float((logits[LLAMA4_SHARDS] - logits[0]).abs().max())
+        kept = (kept_all(recs[LLAMA4_SHARDS]), kept_all(recs[0]))
+        if all(kept):
+            held += 1
+            worst_held = max(worst_held, diff)
+        else:
+            worst_dropped = max(worst_dropped, diff)
+        per_prompt.append(f"{len(req.prompt)} tokens "
+                          f"{'grouped' if is_grouped else 'one plan'}, "
+                          f"{'none' if kept[0] else 'some'} dropped sharded, "
+                          f"{'none' if kept[1] else 'some'} unsharded: "
+                          f"{diff}")
+    dec = []
+
+    def decode_step():
+        eng = ServingEngine(cfg4, ServeConfig(batch_slots=SERVE_SLOTS,
+                                              cache_len=SERVE_CACHE_LEN),
+                            params, device=device, kernel_impl="auto")
+        eng.run([Request(rid=r.rid, prompt=r.prompt, max_new_tokens=2)
+                 for r in reqs], extras)
+
+    with planner("moe_dispatch_plan", recording(dec)):
+        decode_step()
+    dec = [(tuple(plan["slot_token"].shape), cap) for plan, choice, cap in dec
+           if choice.shape[0] == SERVE_SLOTS]
+    E = cfg.num_experts
+    want_dec = (LLAMA4_SHARDS, E * 32)
+    if not dec or any(d != (want_dec, 32) for d in dec):
+        raise AssertionError(f"{LLAMA4} sharded decode plans {dec}")
+    print(f"{LLAMA4} with {LLAMA4_SHARDS} dispatch shards: {grouped} of "
+          f"{len(reqs)} prefills grouped (the prompt length divisible by "
+          f"{LLAMA4_SHARDS}), {len(reqs) - grouped} fell back to one plan; a "
+          f"decode step's {len(dec)} MoE plans grouped at capacity 32 (slot "
+          f"tables {dec[0][0]}); first-token logits against the unsharded "
+          f"kernel path: {held} prompts with no routed entry dropped on "
+          f"either, max |difference| {worst_held} (tolerance "
+          f"{FIRST_LOGIT_TOL}); the others {worst_dropped}; by prompt: "
+          + "; ".join(per_prompt))
+    if not worst_held <= FIRST_LOGIT_TOL:
+        raise AssertionError(f"{LLAMA4} sharded first-token logits differ "
+                             f"by {worst_held} > {FIRST_LOGIT_TOL}")
+    return runs["auto"]["launches"]
+
+
+def main_path_slice11(device) -> dict:
+    """Phase 15: llama4-maverick-400b-a17b (LLAMA4_CUT) serving at its
+    published width through ServingEngine with its seeded early-fusion
+    prefix, all requests on the kernel path and the first
+    LLAMA4_PLAIN_REQUESTS on the plain path; B3 at its shape and its
+    grouped form, B4 at its chunked and NoPE layers; per-shard dispatch
+    on the same weights. Returns the kernel paths' launches of B3 and B4
+    and the readings' largest errors."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import sweep
+    from repro_torch.launch.serve import check_fits
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as TF
+
+    power = gpu_name_and_power()
+    # the last phase: the simulator's cached runners (captured graphs and
+    # their memory pools) go, so the model has the card to itself
+    held = torch.cuda.memory_allocated()
+    sweep.set_runner_cache_capacity(sweep.set_runner_cache_capacity(1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{LLAMA4} phase: the runner cache emptied to one entry, card "
+          f"memory allocated {held} B before, "
+          f"{torch.cuda.memory_allocated()} B after")
+    full = get_config(LLAMA4)
+    # where the chunk binds: random inputs at llama4's heads, the card
+    # still empty
+    q, k, v = random_attention(1, LLAMA4_BINDING_SEQ, full.num_heads,
+                               full.num_kv_heads, full.head_dim,
+                               torch.bfloat16, SEED, device)
+    binding = attention_reading(
+        f"{LLAMA4} chunked-local layer, random S={LLAMA4_BINDING_SEQ} (the "
+        f"{full.window}-token chunk binds)", q, k, v, "chunked", full.window,
+        plain=False)
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(full, **LLAMA4_CUT)
+    free = torch.cuda.mem_get_info()[0]
+    check_fits(cut, free, SERVE_SLOTS, SERVE_CACHE_LEN)
+    weights = cut.param_count() * 2
+    cache = sum(math.prod(shape) * dtype.itemsize
+                for entry in M.cache_spec(cut, SERVE_SLOTS,
+                                          SERVE_CACHE_LEN)["layers"]
+                for shape, dtype in entry.values())
+    # a sharded prefill's largest MoE blocks: the gathered [E, G*C, D]
+    # and three [E, G*C, d_ff] (the two products and their gated product)
+    blocks = cut.num_experts * LLAMA4_SHARDS * 128 * (
+        cut.d_model + 3 * cut.expert_d_ff) * 2
+    print(f"{LLAMA4} cut to {cut.num_layers} of its {full.num_layers} "
+          f"layers: check_fits passes ({weights} B of bf16 weights, {cache} "
+          f"B of cache at {SERVE_SLOTS} x {SERVE_CACHE_LEN}, {free} B free); "
+          f"estimated peak {weights + cache + blocks} B with a sharded "
+          f"prefill's MoE blocks ({blocks} B)")
+    model = full_model(LLAMA4, device, **LLAMA4_CUT)
+    cfg, params = model
+    extras = M.random_extras(cfg, 1, SEED, device)
+    caps = llama4_captures(model, extras, device)
+    b4_err = llama4_b4_readings(caps["attn"])
+    b3_err = llama4_b3_readings(caps, power)
+    del caps
+    specs = TF.layer_specs(cfg)
+    n_moe = sum(s.is_moe for s in specs)
+    n_attn = sum(TF.has_self_attention(s) for s in specs)
+
+    def per_run(st):
+        return {"moe_dispatch": n_moe * (st["prefills"] + st["decode_steps"]),
+                "flash_attention": n_attn * st["prefills"]}
+
+    def requests():
+        return serve_requests(cfg, new_tokens=SLICE9_NEW_TOKENS)
+
+    runs = {"auto": slice9_run(model, device, "auto", requests(), extras),
+            "jnp": slice9_run(model, device, "jnp",
+                              requests()[:LLAMA4_PLAIN_REQUESTS], extras)}
+    for impl, run in runs.items():
+        check_serving_run(LLAMA4, cfg, impl, run, SERVE_PROMPT_LENS, per_run)
+    peak = torch.cuda.max_memory_allocated()
+    llama4_first_token_logits(model, device,
+                              requests()[:LLAMA4_PLAIN_REQUESTS], extras,
+                              runs)
+    sharded = llama4_shards(model, device, extras, requests, per_run)
+    n = 2
+    wall = slice9_run(model, device, "auto", requests()[:n], extras)["wall"]
+    profile_share(f"{LLAMA4} serving, kernel path, the first {n} requests "
+                  f"({power})",
+                  lambda: slice9_run(model, device, "auto", requests()[:n],
+                                     extras)["wall"],
+                  wall, ("flash_attention", "moe_dispatch"))
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    print(f"{LLAMA4} phase: peak card memory {peak} B (estimated "
+          f"{weights + cache + blocks} B; {power}); B4 where the chunk "
+          f"binds {binding['ms']['kernel']:.6f} ms against "
+          f"{binding['ms'][binding['sdpa']]:.6f} ms of {binding['sdpa']}")
+    launches = {name: runs["auto"]["launches"][name] + sharded[name]
+                for name in ("moe_dispatch", "flash_attention")}
+    del model, params, extras, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches, b3_err=b3_err, b4_err=max(b4_err, binding["err"]))
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4376,6 +4989,12 @@ def main() -> int:
                           "latency oracle", main_path_slice10, device)
     rows[0]["launches"] += legacy_counts["lock_grant"]
     rows[1]["launches"] += legacy_counts["dep_wavefront"]
+    slice11 = phase("main path, slice 11: llama4-maverick and per-shard MoE "
+                    "dispatch", main_path_slice11, device)
+    rows[4]["launches"] += slice11["moe_dispatch"]
+    rows[2]["launches"] += slice11["flash_attention"]
+    rows[4]["max_abs_err"] = max(rows[4]["max_abs_err"], slice11["b3_err"])
+    rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], slice11["b4_err"])
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -2,8 +2,7 @@
 
 ``get_config(name)`` returns the full published configuration;
 ``get_smoke_config(name)`` a reduced same-family config for CPU tests.
-Every arch but llama4-maverick-400b-a17b is carried; that one raises
-``NotImplementedError`` naming its slice.
+All ten archs of the JAX package are carried.
 """
 
 from repro_torch.configs.base import (

@@ -4,8 +4,7 @@ A model is a repeating *layer pattern* (the smallest heterogeneous unit,
 e.g. gemma3's [5x local, 1x global]) run ``pattern_repeats`` times, plus
 a ``tail``. The dataclasses are field-for-field those of the JAX
 package, so a test can build one from the other. The registry lists all
-ten architectures; all but llama4-maverick resolve, and that one raises
-``NotImplementedError`` naming the slice that brings it.
+ten architectures, and each resolves.
 """
 
 from __future__ import annotations
@@ -180,7 +179,7 @@ ARCHS = (
     "llama4-maverick-400b-a17b",
 )
 
-# architectures whose config module the port carries
+# each architecture's config module
 _MODULES = {
     "qwen3-32b": "qwen3_32b",
     "gemma3-1b": "gemma3_1b",
@@ -191,13 +190,7 @@ _MODULES = {
     "hymba-1.5b": "hymba_1_5b",
     "whisper-tiny": "whisper_tiny",
     "mixtral-8x22b": "mixtral_8x22b",
-}
-
-# the slice that brings the one arch the port does not carry yet
-UNPORTED = {
-    "llama4-maverick-400b-a17b": (
-        "a later slice (early fusion, chunked + NoPE MoE; one repeat is "
-        "70 GB)"),
+    "llama4-maverick-400b-a17b": "llama4_maverick",
 }
 
 
@@ -206,9 +199,6 @@ def list_archs() -> tuple[str, ...]:
 
 
 def _load(name: str):
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it comes with {UNPORTED[name]}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -22,6 +22,15 @@
 //   - slot e * C + p gets the entry at position p < C; every other slot
 //     -1 and 0.0 (the kernel writes all E * C slots);
 //   - load[e] = count_e / (N * k).
+// The grouped form (per-shard dispatch, `moe_dispatch_shards` G > 1) is
+// the same kernel over G independent plans in one launch: probabilities
+// f32[G, n, E] in, G tables of [E * C] (group-local token indices), G
+// loads and, where asked, G rows of integer counts out. The grid is G
+// clusters of the one-plan launch's blocks; cluster g reads blockIdx.x /
+// blocks as its group and offsets its input and outputs by it. The carry
+// between blocks never leaves a cluster (distributed shared memory), so
+// the groups exchange nothing. One plan (G = 1) is the same launch as
+// before the grouped form.
 // Design. A token a thread. Each thread keeps its token's top-k in
 // registers. Per expert, one ballot of "my token routes to e" gives each
 // token its rank within the warp (popc of the lanes below) and the warp's
@@ -44,7 +53,9 @@
 // 3,000-token mixtral-8x22b prefill (N 3,000, E 8, C 1,024), about
 // 0.048 us at the H100's 3.35 TB/s; 8.5 KB at a decode step (N 8, C
 // 128). Its time is set by launch latency and by each tile's chain of
-// loads, ballots, barriers and scattered stores, not by memory.
+// loads, ballots, barriers and scattered stores, not by memory. The
+// grouped form's G plans run side by side on G clusters, so G plans
+// cost about one launch, not G.
 //
 // The sorted form, `moe_dispatch_kernel`: the TPU kernel's own contract,
 // over expert ids sorted by (expert, arrival). For each entry: its
@@ -175,16 +186,17 @@ struct TopK {
   }
 };
 
-// One cluster of `blocks` blocks walks the tokens in passes of blocks *
-// blockDim.x, a token a thread; each block keeps every expert's count
-// over the earlier passes (`carry`, the same in every block).
+// One cluster of `blocks` blocks walks one group's tokens in passes of
+// blocks * blockDim.x, a token a thread; each block keeps every expert's
+// count over the earlier passes (`carry`, the same in every block). The
+// cluster's group is blockIdx.x / blocks; `counts` may be null.
 template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
 moe_dispatch_plan_kernel(const float* __restrict__ probs,
                          int* __restrict__ slot_token,
                          float* __restrict__ slot_weight,
-                         float* __restrict__ load, int n, int num_experts,
-                         int capacity, bool vec4) {
+                         float* __restrict__ load, int* __restrict__ counts,
+                         int n, int num_experts, int capacity, bool vec4) {
   // per pass: each warp's count of each expert, then its exclusive base
   // within the block (the row stride of kMaxExperts + 1 keeps a column's
   // 32 reads on 32 banks)
@@ -206,6 +218,13 @@ moe_dispatch_plan_kernel(const float* __restrict__ probs,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const unsigned lanes_below = (1u << lane) - 1u;
+  // this cluster's group: its probabilities, table, load and counts
+  const size_t group = blockIdx.x / blocks;
+  probs += group * n * num_experts;
+  slot_token += group * num_experts * capacity;
+  slot_weight += group * num_experts * capacity;
+  load += group * num_experts;
+  if (counts != nullptr) counts += group * num_experts;
   for (int x = tid; x < num_experts; x += threads) carry[x] = 0;
   __syncthreads();
 
@@ -313,6 +332,7 @@ moe_dispatch_plan_kernel(const float* __restrict__ probs,
     const float total = static_cast<float>(n * K);
     for (int x = tid; x < num_experts; x += threads) {
       load[x] = static_cast<float>(carry[x]) / total;
+      if (counts != nullptr) counts[x] = carry[x];
     }
   }
   for (int x = 0; x < num_experts; ++x) {
@@ -327,20 +347,22 @@ moe_dispatch_plan_kernel(const float* __restrict__ probs,
   }
 }
 
-// One cluster of up to kMaxCluster blocks, as many as give each block at
-// least kMinThreads tokens, each block as few threads (a multiple of 32,
-// at most 1,024) as cover its share of one pass: the SMs split the work
-// of a pass, and a plan of over 8,192 tokens takes passes of 8 x 1,024.
+// A plan's cluster: up to kMaxCluster blocks, as many as give each block
+// at least kMinThreads tokens, each block as few threads (a multiple of
+// 32, at most 1,024) as cover its share of one pass: the SMs split the
+// work of a pass, and a plan of over 8,192 tokens takes passes of 8 x
+// 1,024. `groups` such clusters, one a plan.
 template <int K>
 int launch_plan(const void* probs, void* slot_token, void* slot_weight,
-                void* load, int n, int num_experts, int capacity, bool vec4,
+                void* load, void* counts, int groups, int n,
+                int num_experts, int capacity, bool vec4,
                 cudaStream_t stream) {
   const int blocks = max(1, min(kMaxCluster, n / kMinThreads));
   const int share = (n + blocks - 1) / blocks;
   const int threads =
       min(kThreads, max(kMinThreads, (share + 31) / 32 * 32));
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(blocks);
+  config.gridDim = dim3(groups * blocks);
   config.blockDim = dim3(threads);
   config.dynamicSmemBytes = 0;
   config.stream = stream;
@@ -354,7 +376,8 @@ int launch_plan(const void* probs, void* slot_token, void* slot_weight,
   const cudaError_t err = cudaLaunchKernelEx(
       &config, moe_dispatch_plan_kernel<K>, static_cast<const float*>(probs),
       static_cast<int*>(slot_token), static_cast<float*>(slot_weight),
-      static_cast<float*>(load), n, num_experts, capacity, vec4);
+      static_cast<float*>(load), static_cast<int*>(counts), n, num_experts,
+      capacity, vec4);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -378,18 +401,22 @@ extern "C" int moe_dispatch_launch(const void* experts, void* pos, void* keep,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fused plan (see the top of the file). `probs` is f32[n, num_experts]
-// in rows; `vec4` says the rows may be read as float4 (num_experts % 4 == 0
-// and `probs` 16-byte aligned). Returns cudaErrorInvalidValue for a
-// top_k or num_experts the kernel does not take, else the launch's
-// error.
+// The fused plan (see the top of the file), `groups` of them. `probs` is
+// f32[groups, n, num_experts] in rows; the outputs are [groups, E * C]
+// (`slot_token`, `slot_weight`) and [groups, E] (`load`, and `counts`
+// where not null). `vec4` says the rows may be read as float4
+// (num_experts % 4 == 0 and `probs` 16-byte aligned, so every group's
+// rows are too). Returns cudaErrorInvalidValue for a top_k, num_experts
+// or group count the kernel does not take, else the launch's error.
 extern "C" int moe_dispatch_plan_launch(const void* probs, void* slot_token,
-                                        void* slot_weight, void* load, int n,
+                                        void* slot_weight, void* load,
+                                        void* counts, int groups, int n,
                                         int num_experts, int top_k,
                                         int capacity, int vec4,
                                         void* stream) {
   if (top_k < 1 || top_k > kMaxTopK || num_experts < top_k ||
-      num_experts > kMaxExperts) {
+      num_experts > kMaxExperts || groups < 1 ||
+      groups > 0x7fffffff / kMaxCluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -397,8 +424,8 @@ extern "C" int moe_dispatch_plan_launch(const void* probs, void* slot_token,
   switch (top_k) {
 #define MOE_PLAN_CASE(K)                                                  \
   case K:                                                                 \
-    return launch_plan<K>(probs, slot_token, slot_weight, load, n,        \
-                          num_experts, capacity, v, s);
+    return launch_plan<K>(probs, slot_token, slot_weight, load, counts,   \
+                          groups, n, num_experts, capacity, v, s);
     MOE_PLAN_CASE(1)
     MOE_PLAN_CASE(2)
     MOE_PLAN_CASE(3)

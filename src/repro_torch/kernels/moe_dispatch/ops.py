@@ -7,9 +7,11 @@ the load) from the router probabilities. For CUDA tensors it is one
 launch of the fused kernel (``csrc/moe_dispatch.cu``,
 ``moe_dispatch_plan_kernel``); for CPU tensors its plain version
 (``ref.moe_dispatch_plan_ref``, which is
-``repro_torch.models.moe.plan_dispatch``). It takes up to
-``MAX_EXPERTS`` experts and ``MAX_TOP_K`` choices and raises above them:
-there is no other route on the card.
+``repro_torch.models.moe.plan_dispatch``). Given probabilities [G, n, E]
+it plans G groups independently (per-shard dispatch), still in one
+launch (the plain version: ``ref.moe_dispatch_plan_grouped_ref``). It
+takes up to ``MAX_EXPERTS`` experts and ``MAX_TOP_K`` choices and raises
+above them: there is no other route on the card.
 
 ``dispatch_positions(experts_sorted, capacity, num_experts)`` is the
 TPU kernel's own contract, the sorted form, (pos, keep) plus each
@@ -30,6 +32,7 @@ import torch
 from repro_torch.kernels import _build, device_guard
 from repro_torch.kernels.moe_dispatch.ref import (
     dispatch_slots_ref,
+    moe_dispatch_plan_grouped_ref,
     moe_dispatch_plan_ref,
     sorted_plan,
 )
@@ -40,7 +43,8 @@ SOURCES = [Path(__file__).resolve().parent / "csrc" / "moe_dispatch.cu"]
 MAX_EXPERTS = 256
 MAX_TOP_K = 8
 
-# Kernel launches since the last reset (``launches = 0``): both forms.
+# Kernel launches since the last reset (``launches = 0``): both forms; a
+# grouped plan is one launch.
 launches = 0
 
 _LIB: ctypes.CDLL | None = None
@@ -57,7 +61,7 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.moe_dispatch_plan_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -121,13 +125,16 @@ def _check_plan(router_probs, top_k, capacity):
     if p.dtype != torch.float32:
         raise TypeError(f"moe_dispatch_plan: probabilities are {p.dtype}, "
                         f"want float32")
-    if p.dim() != 2:
+    if p.dim() not in (2, 3):
         raise ValueError(f"moe_dispatch_plan: probabilities have shape "
-                         f"{tuple(p.shape)}, want [tokens, experts]")
+                         f"{tuple(p.shape)}, want [tokens, experts] or "
+                         f"[groups, tokens, experts]")
     if not p.is_contiguous():
         raise ValueError("moe_dispatch_plan: probabilities are not "
                          "contiguous")
-    n, E = p.shape
+    n, E = p.shape[-2:]
+    if p.dim() == 3 and not 1 <= p.shape[0] <= _I32_MAX // 8:
+        raise ValueError(f"moe_dispatch_plan: {p.shape[0]} groups")
     if E > MAX_EXPERTS:
         raise ValueError(f"moe_dispatch_plan: {E} experts, the kernel takes "
                          f"at most {MAX_EXPERTS}")
@@ -141,32 +148,44 @@ def _check_plan(router_probs, top_k, capacity):
 
 
 def moe_dispatch_plan_cuda(router_probs, *, top_k, capacity):
-    """Launch the fused plan (a CUDA tensor): one kernel, no other.
-    Same outputs as :func:`moe_dispatch_plan`."""
+    """Launch the fused plan (a CUDA tensor): one kernel, no other, for
+    one plan or G grouped ones. Same outputs as
+    :func:`moe_dispatch_plan`."""
     global launches
     p = router_probs
     _check_plan(p, top_k, capacity)
     if p.device.type != "cuda":
         raise ValueError(f"moe_dispatch_plan: probabilities on {p.device}, "
                          f"want CUDA")
-    n, E = p.shape
-    slot_token = torch.empty(E * capacity, dtype=torch.int32, device=p.device)
-    slot_weight = torch.empty(E * capacity, dtype=torch.float32,
+    grouped = p.dim() == 3
+    G = p.shape[0] if grouped else 1
+    n, E = p.shape[-2:]
+    lead = (G,) if grouped else ()
+    slot_token = torch.empty(lead + (E * capacity,), dtype=torch.int32,
+                             device=p.device)
+    slot_weight = torch.empty(lead + (E * capacity,), dtype=torch.float32,
                               device=p.device)
-    load = torch.empty(E, dtype=torch.float32, device=p.device)
+    load = torch.empty(lead + (E,), dtype=torch.float32, device=p.device)
+    count = (torch.empty((G, E), dtype=torch.int32, device=p.device)
+             if grouped else None)
+    # a group's rows start n * E * 4 bytes apart: 16-byte aligned with E
     vec4 = E % 4 == 0 and p.data_ptr() % 16 == 0
     with device_guard(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = _library().moe_dispatch_plan_launch(
             p.data_ptr(), slot_token.data_ptr(), slot_weight.data_ptr(),
-            load.data_ptr(), n, E, top_k, capacity, int(vec4), stream,
+            load.data_ptr(), count.data_ptr() if grouped else None, G, n, E,
+            top_k, capacity, int(vec4), stream,
         )
     if err != 0:
         raise RuntimeError(f"moe_dispatch_plan kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    return {"slot_token": slot_token, "slot_weight": slot_weight,
+    plan = {"slot_token": slot_token, "slot_weight": slot_weight,
             "load": load}
+    if grouped:
+        plan["count"] = count
+    return plan
 
 
 def moe_dispatch_plan(router_probs, *, top_k, capacity):
@@ -174,12 +193,17 @@ def moe_dispatch_plan(router_probs, *, top_k, capacity):
     contiguous -> {"slot_token": int32[E*C], the token feeding each
     expert slot (-1 empty); "slot_weight": f32[E*C], its combine weight
     (0 empty); "load": f32[E], the share of routed entries per expert}.
-    The fused kernel for a CUDA tensor, the plain version for a CPU
-    tensor."""
+    Grouped, router_probs f32[G, n, E] -> G independent plans of n
+    tokens: "slot_token" [G, E*C] (group-local indices), "slot_weight"
+    [G, E*C], "load" [G, E] (the group's share) and "count": int32[G, E],
+    the group's routed entries per expert. The fused kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
     if router_probs.device.type != "cpu":
         return moe_dispatch_plan_cuda(router_probs, top_k=top_k,
                                       capacity=capacity)
     _check_plan(router_probs, top_k, capacity)
+    if router_probs.dim() == 3:
+        return moe_dispatch_plan_grouped_ref(router_probs, top_k, capacity)
     return moe_dispatch_plan_ref(router_probs, top_k, capacity)
 
 

@@ -16,6 +16,9 @@ a stable sort of the (token, choice) entries by expert,
 ``routed_share`` histogram. JAX's out-of-range scatters
 (``mode="drop"``) become writes into one extra drop row that is sliced
 off: torch raises on such an index, and CUDA device-asserts.
+``moe_dispatch_plan_grouped_ref`` is the grouped form's: one such plan
+per group of a [G, n, E] input (the JAX package vmaps ``plan_dispatch``
+over the groups), with each group's integer count per expert.
 """
 
 from __future__ import annotations
@@ -64,17 +67,22 @@ def route(router_probs, top_k):
     return w / torch.clamp(total, min=1e-9)[:, None], eidx
 
 
+def routed_count(eidx, num_experts):
+    """int32[E]: the routed entries per expert, a histogram by
+    ``index_add_`` (``bincount`` would sync the host)."""
+    ee = eidx.reshape(-1)
+    count = torch.zeros(num_experts, dtype=torch.int32, device=ee.device)
+    return count.index_add_(0, ee, torch.ones(ee.shape[0], dtype=torch.int32,
+                                              device=ee.device))
+
+
 def routed_share(eidx, num_experts):
     """f32[E]: the share of the N*k routed entries that go to each expert:
-    a histogram by ``index_add_`` (``bincount`` would sync the host) over
-    N*k by one IEEE division (a Python divisor would be multiplied in by
-    its reciprocal on the card)."""
-    ee = eidx.reshape(-1)
-    load = torch.zeros(num_experts, dtype=torch.float32, device=ee.device)
-    load.index_add_(0, ee, torch.ones(ee.shape[0], dtype=torch.float32,
-                                      device=ee.device))
-    return load / torch.full((), ee.shape[0], dtype=torch.float32,
-                             device=ee.device)
+    ``routed_count`` (exact in f32) over N*k by one IEEE division (a
+    Python divisor would be multiplied in by its reciprocal on the
+    card)."""
+    return routed_count(eidx, num_experts).float() / torch.full(
+        (), eidx.numel(), dtype=torch.float32, device=eidx.device)
 
 
 def sorted_plan(router_probs, top_k, capacity, slots):
@@ -107,3 +115,17 @@ def moe_dispatch_plan_ref(router_probs, top_k, capacity):
     empty); "slot_weight": f32[E*C], its combine weight (0 empty);
     "load": f32[E], the share of routed entries per expert}."""
     return sorted_plan(router_probs, top_k, capacity, dispatch_slots_ref)
+
+
+def moe_dispatch_plan_grouped_ref(router_probs, top_k, capacity):
+    """G independent plans. router_probs f32[G, n, E] -> {"slot_token":
+    int32[G, E*C] (group-local token indices, -1 empty), "slot_weight":
+    f32[G, E*C], "load": f32[G, E] (each group's share), "count":
+    int32[G, E] (each group's routed entries per expert)}."""
+    E = router_probs.shape[2]
+    plans = [moe_dispatch_plan_ref(p, top_k, capacity) for p in router_probs]
+    out = {f: torch.stack([plan[f] for plan in plans])
+           for f in ("slot_token", "slot_weight", "load")}
+    out["count"] = torch.stack([routed_count(route(p, top_k)[1], E)
+                                for p in router_probs])
+    return out

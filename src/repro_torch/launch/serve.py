@@ -6,17 +6,20 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b
 
-``--arch`` takes every arch but llama4-maverick-400b-a17b. ``--smoke``
-(the default) runs the arch's reduced config, ``--no-smoke`` its full
+``--arch`` takes every arch of the JAX package. ``--smoke`` (the
+default) runs the arch's reduced config, ``--no-smoke`` its full
 published config, after checking that its weights and the serving cache
 (``--slots`` x ``--cache-len``) fit the card's free memory
-(mixtral-8x22b's 281 GB do not: one card serves it cut to 8 of its 56
-layers, as ``chip_smoke.py`` does). Weights are random, from ``--seed``,
-and so are the prompts (4-16 tokens, as the JAX launcher's) and, for
-llama-3.2-vision and whisper, the stub frontends' outputs that every
-prefill takes (``vision_embeds``, ``audio_frames``; the JAX launcher
-passes none, and those two archs fail there).
+(mixtral-8x22b's 281 GB and llama4-maverick's 795 GB do not: one card
+serves them cut in depth, as ``chip_smoke.py`` does). Weights are
+random, from ``--seed``, and so are the prompts (4-16 tokens, as the JAX
+launcher's) and, for llama-3.2-vision, llama4-maverick and whisper, the
+stub frontends' outputs that every prefill takes (``vision_embeds``,
+llama4's early-fusion prefix, ``audio_frames``; the JAX launcher passes
+none, so its early-fusion prefix is never fused and the other two archs
+fail there).
 """
 
 from __future__ import annotations

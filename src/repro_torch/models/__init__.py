@@ -1,3 +1,4 @@
-"""The LM substrate's models, in PyTorch: the attention mixer with a
-dense MLP (gemma3-1b) and the rwkv mixer (rwkv6-1.6b) so far. Other
-mixers raise ``NotImplementedError`` naming their slice."""
+"""The LM substrate's models, in PyTorch: every mixer and model feature of
+the JAX package's ten archs (attention with a dense MLP or a planned MoE,
+rwkv, the hybrid attention + Mamba head, cross-attention, the encoder,
+learned positions, early fusion, per-shard MoE dispatch)."""

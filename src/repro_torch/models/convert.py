@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_ported
 
 
 def _tensors(tree, device, index=None):
@@ -50,7 +49,6 @@ def _layers(cfg: ModelConfig, tree, device):
 
 def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """The JAX ``init_params`` pytree (numpy leaves) as the port's params."""
-    check_ported(cfg)
     params = {k: _tensors(tree[k], device)
               for k in ("tok_embed", "final_norm", "lm_head", "pos_embed",
                         "enc_final_norm") if k in tree}
@@ -63,6 +61,5 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
 
 def cache_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """A JAX decode cache (numpy leaves) in the port's layout."""
-    check_ported(cfg)
     return {"pos": _tensors(tree["pos"], device),
             "layers": _layers(cfg, tree, device)}

@@ -11,8 +11,11 @@ layer's token-shift rows ``tm_x``/``cm_x`` [B, D] and its time mix's
 returns it; ``prefill`` builds a new one.
 
 ``extras`` carries the inputs beside the tokens: ``vision_embeds``
-[B, vision_tokens, D] for llama-3.2-vision's cross layers,
-``audio_frames`` [B, audio_frames, D] for whisper's encoder.
+[B, vision_tokens, D] for llama-3.2-vision's cross layers, or [B,
+early_fusion_tokens, D] for llama4-maverick's early-fusion prefix (the
+prompt's first rows; ``decode_step`` embeds no prefix, as the JAX
+package's does not), ``audio_frames`` [B, audio_frames, D] for whisper's
+encoder.
 """
 
 from __future__ import annotations
@@ -59,7 +62,6 @@ def _layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch, cache_len):
 
 def cache_spec(cfg: ModelConfig, batch: int, cache_len: int):
     """{"pos": ..., "layers": [{name: (shape, dtype)}]} of the cache."""
-    TF.check_ported(cfg)
     return {
         "pos": ((batch,), torch.int32),
         "layers": [_layer_cache_spec(cfg, sp, batch, cache_len)
@@ -87,12 +89,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
 def random_extras(cfg: ModelConfig, batch: int, seed: int, device):
     """Unit-normal stand-ins for the stub frontends' outputs, from
     ``seed``, in the config's dtype: ``vision_embeds`` [batch,
-    vision_tokens, D] and/or ``audio_frames`` [batch, audio_frames, D];
-    {} for an arch that takes neither."""
+    vision_tokens, D] (or [batch, early_fusion_tokens, D] for an
+    early-fusion arch, as the JAX package's ``input_specs`` has it)
+    and/or ``audio_frames`` [batch, audio_frames, D]; {} for an arch
+    that takes neither."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     out = {}
-    for name, n in (("vision_embeds", cfg.vision_tokens),
+    for name, n in (("vision_embeds",
+                     cfg.early_fusion_tokens or cfg.vision_tokens),
                     ("audio_frames", cfg.audio_frames)):
         if n:
             out[name] = torch.randn((batch, n, cfg.d_model), generator=gen,
@@ -126,12 +131,20 @@ def prefill(params, cfg: ModelConfig, tokens, extras=None, cache_len=None,
             kernel_impl="auto"):
     """Process the prompt (tokens int[B,S]; ``extras`` as the module says)
     and build the decode cache. Returns (logits [B,1,V] of the last
-    position, cache)."""
+    position, cache).
+
+    A prompt shorter than an early-fusion prefix raises ValueError: the
+    prefix makes the sequence longer than the prompt, whose length the
+    cache takes, and the JAX package's prefill raises there too."""
     extras = extras or {}
     B, S_ = tokens.shape
+    nf = cfg.early_fusion_tokens
+    if nf and "vision_embeds" in extras and S_ < nf:
+        raise ValueError(f"{cfg.name}: a prompt of {S_} tokens is shorter "
+                         f"than the {nf}-row early-fusion prefix")
     cache_len = cache_len or S_
     cache = init_cache(cfg, B, cache_len, tokens.device)
-    x = TF._embed(params, cfg, tokens)
+    x = TF._embed(params, cfg, tokens, extras)
     cross = TF._cross_tokens(params, cfg, extras, kernel_impl)
     for p, spec, entry in zip(params["layers"], TF.layer_specs(cfg),
                               cache["layers"]):

@@ -17,10 +17,18 @@ Modes:
   'dense'   — every expert computes every token, mask-combined (exact, no
               drops); the tests' oracle.
 
+Per-shard dispatch (``dispatch_shards`` G > 1, where G divides the N
+tokens): the JAX package plans each data-parallel shard's n = N / G
+tokens on its own, at a local capacity of its own (at least 32), and
+vmaps the gather, the experts and the combine over the shards. Here the
+G plans are one grouped launch of B3, the G shards' slot blocks go
+through each expert's FFN as one [G * C, d] block, and one scatter-add
+combines them on global token indices. Where G does not divide N it
+plans once over all N, as the JAX package does. The aux loss takes the
+routed share over all N tokens either way.
+
 The JAX package's ``weight_gather`` is a sharding constraint with no
 numeric effect on one card: it is accepted and changes nothing.
-``dispatch_shards > 1`` (per-shard plans over a data-parallel mesh)
-raises: it comes with the distribution slice.
 """
 
 from __future__ import annotations
@@ -33,13 +41,12 @@ import torch.nn.functional as F
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.moe_dispatch.ops import moe_dispatch_plan
 from repro_torch.kernels.moe_dispatch.ref import (
+    moe_dispatch_plan_grouped_ref,
     moe_dispatch_plan_ref,
     route,
     routed_share,
 )
 from repro_torch.models import layers as L
-
-DISTRIBUTION = "the distribution slice (ROADMAP Queue 1, item 11)"
 
 
 def _bank(shape, scale, dtype, device, gen):
@@ -86,16 +93,20 @@ def _expert_ffn(blocks, p, mlp_kind):
 def plan_dispatch(router_probs, top_k, capacity):
     """The plain dispatch plan, on any device: B3's plain version (route,
     stable sort, positions, scatters, histogram; the port of
-    ``repro.models.moe.plan_dispatch``)."""
+    ``repro.models.moe.plan_dispatch``); for probabilities [G, n, E] one
+    plan a group, as ``moe_dispatch_plan`` takes them."""
+    if router_probs.dim() == 3:
+        return moe_dispatch_plan_grouped_ref(router_probs, top_k, capacity)
     return moe_dispatch_plan_ref(router_probs, top_k, capacity)
 
 
-def capacity_for(n_tokens, top_k, num_experts, capacity_factor):
+def capacity_for(n_tokens, top_k, num_experts, capacity_factor, floor=128):
     """The planned mode's static per-expert capacity: ``capacity_factor``
     times the mean load, truncated, then rounded up to a multiple of 128
-    and at least 128."""
+    and at least ``floor``: 128 for one plan, 32 for a shard's plan (0
+    rounds up to 0, so a shard's capacity may be 32)."""
     cap = int(capacity_factor * n_tokens * top_k / num_experts)
-    return max(128, (cap + 127) // 128 * 128)
+    return max(floor, (cap + 127) // 128 * 128)
 
 
 def apply_moe(x, p, *, top_k, capacity_factor, mlp_kind="swiglu",
@@ -104,14 +115,11 @@ def apply_moe(x, p, *, top_k, capacity_factor, mlp_kind="swiglu",
     """x: [B,S,D] -> ([B,S,D], the Switch load-balance aux loss).
 
     The planned mode plans over all N = B*S tokens (a decode step's idle
-    slots included) through kernel B3 or ``plan_dispatch``
-    (``kernel_impl``, as ``repro_torch.kernels.use_kernel`` reads it).
+    slots included), or per shard (the module's docstring), through
+    kernel B3 or ``plan_dispatch`` (``kernel_impl``, as
+    ``repro_torch.kernels.use_kernel`` reads it): one launch either way.
     """
     del weight_gather  # a sharding constraint: nothing to do on one card
-    if dispatch_shards > 1:
-        raise NotImplementedError(
-            f"per-shard MoE dispatch (dispatch_shards={dispatch_shards}) is "
-            f"not ported yet; it comes with {DISTRIBUTION}")
     B, S, D = x.shape
     N = B * S
     E = p["router"].shape[1]
@@ -132,21 +140,44 @@ def apply_moe(x, p, *, top_k, capacity_factor, mlp_kind="swiglu",
         out = torch.einsum("end,ne->nd", y, gate.to(y.dtype))
         load = routed_share(eidx, E)
     else:
-        cap = capacity_for(N, top_k, E, capacity_factor)
         planner = (moe_dispatch_plan if use_kernel(kernel_impl, x.device)
                    else plan_dispatch)
-        plan = planner(probs, top_k=top_k, capacity=cap)
-        st = plan["slot_token"]
+        G = dispatch_shards if dispatch_shards > 1 else 1
+        if N % G:
+            G = 1  # the JAX package's fallback: one plan over all N
+        if G > 1:
+            n_loc = N // G
+            cap = capacity_for(n_loc, top_k, E, capacity_factor, floor=32)
+            plan = planner(probs.view(G, n_loc, E), top_k=top_k,
+                           capacity=cap)
+            # group-local slot tokens -> global token indices
+            st = plan["slot_token"]
+            st = torch.where(st >= 0, st + torch.arange(
+                0, N, n_loc, dtype=st.dtype, device=st.device)[:, None], -1)
+
+            def by_expert(t):  # [G, E*cap] -> [E, G, cap], flat
+                return t.view(G, E, cap).transpose(0, 1).reshape(-1)
+
+            st, w = by_expert(st), by_expert(plan["slot_weight"])
+            # the Switch loss's routed share over all N tokens
+            load = plan["count"].sum(0).float() / torch.full(
+                (), N * top_k, dtype=torch.float32, device=x.device)
+        else:
+            cap = capacity_for(N, top_k, E, capacity_factor)
+            plan = planner(probs, top_k=top_k, capacity=cap)
+            st, w = plan["slot_token"], plan["slot_weight"]
+            load = plan["load"]  # = the Switch loss's routed share
+        # each expert's slots (of every group) as one [G*cap, D] block
         valid = st >= 0
-        gathered = xf[st.clamp(min=0)]
-        gathered = torch.where(valid[:, None], gathered, 0).reshape(E, cap, D)
-        y = _expert_ffn(gathered, p, mlp_kind).reshape(E * cap, D)
-        y = y * plan["slot_weight"][:, None].to(y.dtype)
+        gathered = xf[torch.where(valid, st, 0)]
+        gathered = torch.where(valid[:, None], gathered, 0).reshape(
+            E, G * cap, D)
+        y = _expert_ffn(gathered, p, mlp_kind).reshape(E * G * cap, D)
+        y = y * w[:, None].to(y.dtype)
         # the combine: empty slots land on the extra row N, sliced off
         out = torch.zeros((N + 1, D), dtype=y.dtype, device=x.device)
         out.index_add_(0, torch.where(valid, st, N), y)
         out = out[:N]
-        load = plan["load"]  # = the Switch loss's routed share per expert
 
     if "shared" in p:
         out = out + L.apply_mlp(mlp_kind, xf, p["shared"])

@@ -8,8 +8,9 @@ The JAX package stacks each pattern position's weights over
 tensors per layer in ``params["layers"]``, in the scan's order: for each
 repeat r the pattern positions l0, l1, ...; then the tail
 (``layer_specs``). The encoder's layers are ``params["encoder"]``, a list
-in order. What is not ported yet (early fusion, per-shard MoE dispatch)
-raises ``NotImplementedError`` naming the slice that brings it.
+in order. Early fusion (llama4-maverick) is ``_embed``'s: the first
+``early_fusion_tokens`` rows of the embedded prompt are replaced by
+``extras["vision_embeds"]``.
 """
 
 from __future__ import annotations
@@ -23,25 +24,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 
-_EARLY_FUSION = ("a later slice with llama4-maverick (ROADMAP Queue 1, item "
-                 "13.4, with item 11)")
 # the encoder's layers: attention without RoPE and a dense MLP
 ENC_SPEC = LayerSpec(mixer="attn", attn_kind="full", use_rope=False)
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot build yet."""
-    unported = []
-    if cfg.moe_dispatch_shards > 1 and any(
-            s.is_moe for s in cfg.pattern + cfg.tail):
-        unported.append(("per-shard MoE dispatch (moe_dispatch_shards > 1)",
-                         MOE.DISTRIBUTION))
-    if cfg.early_fusion_tokens:
-        unported.append(("early-fusion tokens", _EARLY_FUSION))
-    if unported:
-        what, where = unported[0]
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet; it comes with {where}")
 
 
 def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
@@ -195,7 +179,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     from JAX's (``models.convert.params_from_numpy`` takes those). Each
     tensor is drawn and cast alone, so the peak is the weights and one
     tensor's f32 draw."""
-    check_ported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -223,8 +206,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, extras):
+    """The token embeddings [B,S,D]; with early fusion the first
+    ``early_fusion_tokens`` rows replaced by ``extras["vision_embeds"]``
+    [B,nf,D] (cast to the activations' dtype), as the JAX package does:
+    a prompt shorter than nf grows to nf rows. Then learned positions."""
     x = params["tok_embed"][tokens]
+    if cfg.early_fusion_tokens and "vision_embeds" in extras:
+        nf = cfg.early_fusion_tokens
+        x = torch.cat([extras["vision_embeds"].to(x.dtype), x[:, nf:]],
+                      dim=1)
     if cfg.pos_embedding == "learned":
         x = x + params["pos_embed"][:x.shape[1]][None]
     return x
@@ -233,7 +224,8 @@ def _embed(params, cfg, tokens):
 def _cross_tokens(params, cfg, extras, kernel_impl="auto"):
     """The cross layers' memory [B,T,D]: the encoder over
     ``extras["audio_frames"]`` (whisper), else ``extras["vision_embeds"]``
-    (llama-3.2-vision), else None."""
+    (llama-3.2-vision; llama4-maverick's early-fusion prefix too, which
+    no layer of its reads as cross memory), else None."""
     if cfg.audio_frames and "audio_frames" in extras:
         return run_encoder(params, cfg, extras["audio_frames"], kernel_impl)
     return extras.get("vision_embeds")
@@ -272,9 +264,8 @@ def _lm_head(params, cfg, x):
 def forward(params, cfg: ModelConfig, tokens, extras=None, *,
             kernel_impl="auto"):
     """Full-sequence forward. Returns (hidden [B,S,D], aux_loss)."""
-    check_ported(cfg)
     extras = extras or {}
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, extras)
     cross = _cross_tokens(params, cfg, extras, kernel_impl)
     aux_total = 0.0
     for p, spec in zip(params["layers"], layer_specs(cfg)):

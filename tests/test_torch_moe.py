@@ -228,16 +228,20 @@ def test_planned_with_ample_capacity_equals_dense():
     assert torch.equal(a1, a2)
 
 
-def test_weight_gather_changes_nothing_and_shards_raise():
+def test_weight_gather_changes_nothing_and_ample_shards_equal_one_plan():
+    """``weight_gather`` is a sharding constraint; two shards' plans at a
+    capacity that drops nothing compute the one plan's output (each
+    token's expert rows are the same rows) and its aux loss."""
     p = jax.tree.map(torch.from_numpy, _moe_params(32, 64, 4, "swiglu",
                                                    False, seed=40))
     x = torch.from_numpy(_normal((2, 8, 32), 41))
     kw = dict(top_k=2, capacity_factor=1.25)
-    o1, _ = MOE.apply_moe(x, p, **kw)
+    o1, a1 = MOE.apply_moe(x, p, **kw)
     o2, _ = MOE.apply_moe(x, p, weight_gather=True, **kw)
     assert torch.equal(o1, o2)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        MOE.apply_moe(x, p, dispatch_shards=2, **kw)
+    o3, a3 = MOE.apply_moe(x, p, dispatch_shards=2, **kw)
+    _close(o3, o1, 2e-5)
+    assert torch.equal(a3, a1)
 
 
 @pytest.mark.parametrize("n_tokens,cf,want", [

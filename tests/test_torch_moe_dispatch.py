@@ -309,7 +309,7 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
 
 
 @pytest.mark.parametrize("case", ["float64", "bfloat16", "1-D", "3-D",
-                                  "not contiguous", "top_k above E",
+                                  "4-D", "not contiguous", "top_k above E",
                                   "top_k 0", "top_k above the limit",
                                   "E above the limit", "negative capacity",
                                   "slots past int32"])
@@ -320,8 +320,10 @@ def test_plan_bad_arguments_raise(case):
         probs = probs.to(getattr(torch, case))
     elif case == "1-D":
         probs = probs.reshape(-1)
-    elif case == "3-D":
-        probs = probs.reshape(2, 8, 8)
+    elif case == "3-D":  # grouped plans, but no group
+        probs = probs.reshape(1, 16, 8)[:0]
+    elif case == "4-D":
+        probs = probs.reshape(2, 1, 8, 8)
     elif case == "not contiguous":
         probs = torch.from_numpy(_probs(8, 16, 0)).t()
     elif case == "top_k above E":

@@ -1,10 +1,9 @@
 """The port's serving path against ``repro.serve``: the admission planner's
 decisions, and the engine's output tokens token for token (gemma3-1b
 SMOKE config in float32, the same weights, more requests than slots);
-the one unported arch and the two unported features raise
-``NotImplementedError``, the archs and features ported since build with
+the archs and features ported since the first model slice build with
 the JAX package's configs, shapes and dtypes; the launcher runs on the
-CPU, every arch it takes at SMOKE."""
+CPU, every arch at SMOKE."""
 
 import dataclasses
 
@@ -22,8 +21,7 @@ from repro.serve import AdmissionPlanner as JaxPlanner  # noqa: E402
 from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve import ServeConfig as JaxServeConfig  # noqa: E402
 from repro.serve import ServingEngine as JaxEngine  # noqa: E402
-from repro_torch.configs import base as config_base  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config, list_archs  # noqa: E402
 from repro_torch.configs.base import LayerSpec  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
@@ -114,24 +112,18 @@ def test_engine_rejects_params_on_another_device():
         ServingEngine(cfg, ServeConfig(), params)  # the card by default
 
 
-# the archs the port carries since the slice of the other archs' serving
+# the archs the port carries since the slice of the other archs' serving,
+# and llama4-maverick since the slice after it
 FORMERLY_UNPORTED = ("qwen3-32b", "stablelm-1.6b", "starcoder2-3b",
-                     "llama-3.2-vision-11b", "hymba-1.5b", "whisper-tiny")
-
-
-@pytest.mark.parametrize("arch", sorted(config_base.UNPORTED))
-def test_unported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="slice"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="slice"):
-        get_smoke_config(arch)
+                     "llama-3.2-vision-11b", "hymba-1.5b", "whisper-tiny",
+                     "llama4-maverick-400b-a17b")
 
 
 @pytest.mark.parametrize("arch", FORMERLY_UNPORTED)
 def test_formerly_unported_arch_loads(arch):
     """Published and SMOKE configs field for field the JAX package's, with
     the same analytic parameter count."""
-    assert arch not in config_base.UNPORTED
+    assert arch in list_archs()
     for port, ref in ((get_config(arch), jax_config(arch)),
                       (get_smoke_config(arch), jax_smoke(arch))):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -140,24 +132,14 @@ def test_formerly_unported_arch_loads(arch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(pattern=(LayerSpec(is_moe=True),), num_experts=4,
-         experts_per_token=2, moe_dispatch_shards=2),
-    dict(early_fusion_tokens=4),
-])
-def test_building_an_unported_feature_raises(change):
-    cfg = dataclasses.replace(get_smoke_config(ARCH), **change)
-    with pytest.raises(NotImplementedError, match="slice"):
-        M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        M.init_cache(cfg, 1, 8, "cpu")
-
-
-@pytest.mark.parametrize("change", [
     dict(pattern=(LayerSpec(mixer="attn", attn_kind="none"),)),
     dict(pattern=(LayerSpec(mixer="hybrid"),)),
     dict(tail=(LayerSpec(has_cross=True),)),
     dict(encoder_layers=2),
     dict(pos_embedding="learned"),
+    dict(pattern=(LayerSpec(is_moe=True),), num_experts=4,
+         experts_per_token=2, moe_dispatch_shards=2),
+    dict(early_fusion_tokens=4),
 ])
 def test_building_a_formerly_unported_feature(change):
     """The port's own ``init_params`` and ``init_cache`` give the shapes
@@ -189,7 +171,8 @@ def test_launch_serve_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("arch", FORMERLY_UNPORTED)
 def test_launch_serve_runs_each_arch_on_the_cpu(arch, capsys):
     """At SMOKE, with the seeded ``vision_embeds`` / ``audio_frames``
-    that llama-3.2-vision's and whisper's prefills take."""
+    that llama-3.2-vision's, llama4-maverick's and whisper's prefills
+    take."""
     assert launch_serve.main(["--device", "cpu", "--arch", arch,
                               "--requests", "3", "--max-new", "4",
                               "--slots", "2"]) == 0
