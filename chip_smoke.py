@@ -263,6 +263,27 @@ Phases (each raises on failure; the script then exits non-zero):
                was dropped. Tokens/s, prefill ms per request, decode ms
                per step, the busy share of the first 2 kernel-path
                requests and the peak card memory beside its estimate.
+ 16. main path, slice 12: distributed ORTHRUS — ``core.distributed``'s
+               one-device form (the ``cc`` axis a leading tensor
+               dimension, the all-to-all a transpose, one launch of B1's
+               sorted form a round for every shard, the rounds as
+               replays of an 8-round CUDA graph, ``ROUNDS_PER_REPLAY``):
+               tests/test_sharding.py's 8-shard cell on the kernel and
+               the plain path, per-shard
+               commits exactly the JAX reference's DIST_TEST_COMMITS;
+               fig13's orthrus split as 16 CC shards x 4 exec lanes over
+               YCSB at the paper's width (625,000 keys a shard, 10 keys a
+               txn, msg_cap 16), each lane re-running one of the
+               workload's first 64 txns, with 64 hot keys (all on shard
+               0) and uniform: at DIST_CPU_ROUNDS both paths equal the
+               port's CPU run, at DIST_ROUNDS the two paths are identical
+               and B1 launches once a round; rounds/s, commits a round,
+               CUDA kernels, device ms and B1's ms a round
+               (torch.profiler) and the busy share; B1's sorted form held
+               and timed in turns against its plain version at the
+               round's N = 4,096 beside the bound; the process form
+               (``all_to_all_single`` over NCCL at world size 1, a file
+               store under build/) equal to the one-device form at n_cc 1.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -600,6 +621,23 @@ ORACLE_CELLS = (
     ("deadlock_free_open_i200", dict(FIG17_DF, epoch_interval_rounds=200),
      YCSB_FIG16, (64, 200)),
 )
+# Distributed ORTHRUS (phase 16, slice 12): tests/test_sharding.py's
+# 8-shard cell and its per-shard commits under the JAX reference; then
+# fig13's orthrus split (16 CC + 64 exec lanes) as 16 CC shards x 4 exec
+# lanes over YCSB_FULL's 10 M records (625,000 keys a shard), each lane
+# re-running one of the workload's first 64 txns, at the figures' depth
+DIST_TEST = dict(lanes_per_shard=8, keys_per_txn=3, rounds=200,
+                 keys_per_shard=512, msg_cap=32)
+DIST_TEST_COMMITS = [200, 200, 175, 200, 200, 175, 200, 200]
+DIST_CC = 16
+DIST_FULL = dict(lanes_per_shard=4, keys_per_txn=10, exec_rounds=3,
+                 msg_cap=16, keys_per_shard=625_000)
+DIST_ROUNDS = 16_000
+DIST_CPU_ROUNDS = 500  # the depth at which the card is held to the CPU
+DIST_HOTS = (64, 0)  # 64 hot keys, all on shard 0; uniform
+DIST_PROFILED = 400
+DIST_NCCL = dict(DIST_FULL, lanes_per_shard=4, keys_per_shard=10_000_000,
+                 rounds=2000)
 
 
 def fingerprint(res, include_metrics: bool = False) -> dict:
@@ -4781,8 +4819,8 @@ def main_path_slice11(device) -> dict:
     from repro_torch.models import transformer as TF
 
     power = gpu_name_and_power()
-    # the last phase: the simulator's cached runners (captured graphs and
-    # their memory pools) go, so the model has the card to itself
+    # after the simulator's phases: their cached runners (captured graphs
+    # and their memory pools) go, so the model has the card to itself
     held = torch.cuda.memory_allocated()
     sweep.set_runner_cache_capacity(sweep.set_runner_cache_capacity(1))
     gc.collect()
@@ -4867,6 +4905,254 @@ def main_path_slice11(device) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(launches, b3_err=b3_err, b4_err=max(b4_err, binding["err"]))
+
+
+def dist_txns(hot: int, lanes: int):
+    """The first ``lanes`` txns of YCSB_FULL at ``hot`` hot keys, each
+    row's keys sorted with their modes (canonical order, P2)."""
+    import numpy as np
+
+    wl = make_full_workload(dict(YCSB_FULL, num_hot=hot))
+    order = np.argsort(wl.keys[:lanes], axis=1, kind="stable")
+    return (np.take_along_axis(wl.keys[:lanes], order, 1).astype(np.int32),
+            np.take_along_axis(wl.modes[:lanes], order, 1).astype(np.int32))
+
+
+def dist_run(mesh, cfg, keys, modes, impl):
+    """One ``make_engine`` run with B1's launches counted from 0: (per-shard
+    commits, launches, wall s including its graph capture)."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels.lock_grant import ops
+
+    fn = D.make_engine(mesh, cfg, kernel_impl=impl)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    commits = fn(keys, modes).tolist()
+    wall = time.perf_counter() - t0
+    return commits, ops.launches, wall
+
+
+def dist_round_inputs(cfg, keys, modes, device, rounds: int = 300):
+    """The sorted-form inputs of the round with the most requests among
+    the first ``rounds`` of an eager kernel-path run (B1 at the
+    distributed round's shape)."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.lockgrant import REQ_NONE
+    from repro_torch.kernels.lock_grant import ops
+
+    n_cc = DIST_CC
+    me = torch.arange(n_cc, dtype=torch.int32, device=device)
+    k = torch.from_numpy(keys).to(device).reshape(n_cc, -1, cfg.keys_per_txn)
+    m = torch.from_numpy(modes).to(device).reshape(k.shape)
+    state = D.initial_state(cfg, n_cc, device)
+
+    def run():
+        # built under the wrapper: make_round binds lock_grant_sorted
+        round_ = D.make_round(cfg, n_cc, me, k, m, kernel=True)
+        for _ in range(rounds):
+            round_(state)
+
+    before = ops.launches
+    rec = capture_calls([(ops, "lock_grant_sorted", lambda *a: True)],
+                        run)[0]
+    ops.launches = before
+    return max(rec, key=lambda a: int((a[1] != REQ_NONE).sum()))
+
+
+def dist_profile(label, mesh, cfg, keys, modes, impl, wall_ms) -> None:
+    """DIST_PROFILED rounds of one path under torch.profiler (CUDA
+    activity; the graph's kernel nodes under replay): CUDA kernels and
+    device ms a round and B1's share, and the busy share against
+    ``wall_ms`` a round of the unprofiled run."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import distributed as D
+
+    short = dataclasses.replace(cfg, rounds=DIST_PROFILED)
+    fn = D.make_engine(mesh, short, kernel_impl=impl)
+    fn(keys, modes)  # the builds and first launches outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(keys, modes)
+        torch.cuda.synchronize()
+    kern = device_activity(prof)
+    # the capture's warm-up round runs eagerly: DIST_PROFILED + 1 rounds
+    n = DIST_PROFILED + 1
+    n_kernels = sum(c for c, _s in kern.values()) / n
+    dev_ms = sum(sec for _c, sec in kern.values()) / n * 1e3
+    b1 = [(c, sec) for name, (c, sec) in kern.items()
+          if "lock_grant_kernel" in name]
+    b1_ms = sum(sec for _c, sec in b1) / n * 1e3
+    if n_kernels <= 0:
+        raise AssertionError(f"{label}: the profiler saw no CUDA kernel")
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:5]
+    print(f"profile distributed orthrus {label}: {n_kernels:.1f} CUDA "
+          f"kernels a round, device {dev_ms:.6f} ms a round against "
+          f"{wall_ms:.6f} ms wall (busy share {dev_ms / wall_ms:.4f}); B1 "
+          f"{sum(c for c, _s in b1) / n:.2f} launches and {b1_ms:.6f} ms a "
+          f"round; top: " + "; ".join(
+              f"{name[:50]} {sec / n * 1e6:.2f} us" for name, (_c, sec)
+              in top))
+
+
+def dist_nccl(device) -> int:
+    """(c) The process form over NCCL at world size 1 (a file store under
+    build/) against the one-device form at n_cc 1. Returns B1's launches
+    of the process-form run."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import DistConfig
+    from repro_torch.launch.mesh import one_device_mesh, process_mesh
+
+    store = ROOT / "build" / "dist_nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    keys, modes = dist_txns(DIST_HOTS[0], DIST_NCCL["lanes_per_shard"])
+    cfg = DistConfig(**DIST_NCCL)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        got, launches, wall = dist_run(process_mesh((1,), ("cc",)), cfg,
+                                       keys, modes, "auto")
+    finally:
+        dist.destroy_process_group()
+    want, _, _ = dist_run(one_device_mesh((1,), ("cc",), device), cfg, keys,
+                          modes, "auto")
+    if got != want or launches != cfg.rounds:
+        raise AssertionError(f"NCCL process form {got} ({launches} B1 "
+                             f"launches) against one-device {want}")
+    print(f"distributed orthrus, process form over NCCL at world size 1, "
+          f"{cfg.rounds} rounds (eager, one all_to_all_single each way a "
+          f"round): per-shard commits {got} equal the one-device form's; "
+          f"B1 {launches} launches; {cfg.rounds / wall:.1f} rounds/s")
+    return launches
+
+
+def main_path_slice12(device) -> dict:
+    """Phase 16: distributed ORTHRUS, the one-device form (16 CC shards as
+    a leading tensor dimension, the all-to-all a transpose, one B1 sorted
+    launch a round for all shards, DIST_ROUNDS rounds as CUDA-graph
+    replays) on both paths, held to its CPU run at DIST_CPU_ROUNDS; B1 at
+    the round's shape against its plain version; the process form over
+    NCCL. Returns the main path's B1 launches and B1's largest error."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.lockgrant import REQ_NONE
+    from repro_torch.kernels.lock_grant import ops
+    from repro_torch.kernels.lock_grant.ref import lock_grant_ref
+    from repro_torch.launch.mesh import one_device_mesh
+
+    power = gpu_name_and_power()
+    total = 0
+    # (a) the reference test's cell (its draw), kernel and plain paths
+    rng = np.random.default_rng(0)
+    cfg = D.DistConfig(**DIST_TEST)
+    n = 8 * cfg.lanes_per_shard
+    keys = np.sort(rng.integers(0, 8 * cfg.keys_per_shard,
+                                (n, cfg.keys_per_txn)), axis=1)
+    modes = rng.integers(0, 2, keys.shape)
+    mesh8 = one_device_mesh((8,), ("cc",), device)
+    for impl in ("auto", "jnp"):
+        got, launches, wall = dist_run(mesh8, cfg, keys, modes, impl)
+        want_launches = cfg.rounds if impl == "auto" else 0
+        if got != DIST_TEST_COMMITS or launches != want_launches:
+            raise AssertionError(f"distributed orthrus, the reference "
+                                 f"test's cell, {impl}: {got}, {launches} "
+                                 f"B1 launches")
+        total += launches
+        print(f"distributed orthrus, tests/test_sharding.py's cell (8 "
+              f"shards x 8 lanes, 3 keys, {cfg.rounds} rounds), "
+              f"{'kernel' if impl == 'auto' else 'plain'} path: per-shard "
+              f"commits {got} as the JAX reference's; B1 {launches} "
+              f"launches; {wall:.3f} s")
+
+    # (b) full width, two cells
+    mesh = one_device_mesh((DIST_CC,), ("cc",), device)
+    cpu_mesh = one_device_mesh((DIST_CC,), ("cc",), "cpu")
+    full = D.DistConfig(rounds=DIST_ROUNDS, **DIST_FULL)
+    short = dataclasses.replace(full, rounds=DIST_CPU_ROUNDS)
+    err = 0
+    for hot in DIST_HOTS:
+        label = f"hot {hot}" if hot else "uniform"
+        keys, modes = dist_txns(hot, DIST_CC * full.lanes_per_shard)
+        t0 = time.perf_counter()
+        cpu = D.make_engine(cpu_mesh, short, kernel_impl="auto")(
+            keys, modes).tolist()
+        cpu_s = time.perf_counter() - t0
+        for impl in ("auto", "jnp"):
+            got, launches, _ = dist_run(mesh, short, keys, modes, impl)
+            total += launches
+            if got != cpu or launches != (short.rounds if impl == "auto"
+                                          else 0):
+                raise AssertionError(f"distributed orthrus {label}, "
+                                     f"{DIST_CPU_ROUNDS} rounds, {impl}: "
+                                     f"{got} against the CPU's {cpu}")
+        print(f"distributed orthrus {label}: at {DIST_CPU_ROUNDS} rounds "
+              f"both paths on the card equal the CPU run ({cpu}, "
+              f"{cpu_s:.3f} s on the CPU)")
+        runs = {}
+        for impl in ("auto", "jnp"):
+            runs[impl] = dist_run(mesh, full, keys, modes, impl)
+            total += runs[impl][1]
+        (kc, kl, kw), (pc, pl, pw) = runs["auto"], runs["jnp"]
+        if kc != pc or kl != full.rounds or pl != 0:
+            raise AssertionError(f"distributed orthrus {label}: kernel path "
+                                 f"{kc} ({kl} B1 launches), plain {pc} "
+                                 f"({pl})")
+        print(f"distributed orthrus {label}, {DIST_CC} CC shards x "
+              f"{full.lanes_per_shard} exec lanes, {full.keys_per_txn} "
+              f"keys a txn, msg_cap {full.msg_cap}, {full.rounds} rounds "
+              f"({full.rounds // D.ROUNDS_PER_REPLAY} replays of a "
+              f"{D.ROUNDS_PER_REPLAY}-round graph): "
+              f"per-shard commits {kc}, identical on both paths, "
+              f"{sum(kc) / full.rounds:.4f} commits a round; B1 {kl} "
+              f"launches; kernel path {kw:.3f} s ({full.rounds / kw:.1f} "
+              f"rounds/s), plain path {pw:.3f} s ({full.rounds / pw:.1f} "
+              f"rounds/s) ({power})")
+        for impl, (_c, _l, w) in runs.items():
+            dist_profile(f"{label}, {'kernel' if impl == 'auto' else 'plain'}"
+                         f" path", mesh, full, keys, modes, impl,
+                         w / full.rounds * 1e3)
+        if hot:
+            # B1's sorted form at the distributed round's shape
+            args = dist_round_inputs(full, keys, modes, device)
+            before = ops.launches
+            want = lock_grant_ref(*args)
+            err = max(err, max_abs_err(ops.lock_grant_cuda(*args), want))
+            res = in_turns({"kernel": lambda: ops.lock_grant_cuda(*args),
+                            "plain": lambda: lock_grant_ref(*args)},
+                           graph_ms)
+            ops.launches = before
+            n_ent = args[0].shape[0]
+            active = int((args[1] != REQ_NONE).sum())
+            # each entry's key, kind, write-free flag and read count read
+            # (13 B), its grant and three int32 positions written (13 B)
+            n_bytes = n_ent * 26
+            print_turns(f"lock_grant sorted form at the distributed round's "
+                        f"N={n_ent} ({active} requests, the rest padding; "
+                        f"max_abs_err {err})", res)
+            print(f"lock_grant sorted form at N={n_ent}: kernel "
+                  f"{res['kernel'][1]:.6f} ms, plain {res['plain'][1]:.6f} "
+                  f"ms, bound {n_bytes / HBM_BYTES_PER_S * 1e3:.9f} ms "
+                  f"(bytes: {n_bytes} B) ({power})")
+    if err:
+        raise AssertionError(f"B1 at the distributed shape: max_abs_err "
+                             f"{err}")
+    # (c) the process form over NCCL
+    total += dist_nccl(device)
+    return dict(lock_grant=total, b1_err=err)
 
 
 def gpu_name_and_power() -> str:
@@ -4995,6 +5281,10 @@ def main() -> int:
     rows[2]["launches"] += slice11["flash_attention"]
     rows[4]["max_abs_err"] = max(rows[4]["max_abs_err"], slice11["b3_err"])
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], slice11["b4_err"])
+    slice12 = phase("main path, slice 12: distributed ORTHRUS",
+                    main_path_slice12, device)
+    rows[0]["launches"] += slice12["lock_grant"]
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], slice12["b1_err"])
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

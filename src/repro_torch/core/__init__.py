@@ -8,7 +8,9 @@ the overload layer, at any ``rounds_per_dispatch``: ``orthrus``,
 the lock-table engine, and the batch-planned ``dgcc``, ``quecc`` and
 ``scheduled``. ``EngineConfig(state_layout="legacy")`` runs the frozen
 pre-packed engine (``engine_legacy``), the conformance oracle of the
-packed one. ``protocols`` is the protocol registry.
+packed one. ``protocols`` is the protocol registry. ``distributed`` is
+ORTHRUS with one CC shard per mesh position and explicit message
+passing, on one device or one rank a shard.
 """
 
 from repro_torch.core.cost_model import CostModel

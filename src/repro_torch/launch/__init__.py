@@ -1,1 +1,1 @@
-"""Command-line entry points of the port."""
+"""Entry points of the port (``serve``) and its meshes (``mesh``)."""

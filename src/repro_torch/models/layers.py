@@ -90,6 +90,12 @@ def normal(shape, scale, dtype, device, gen):
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
 
+def norm_axes(kind):
+    if kind == "rmsnorm":
+        return {"scale": ("embed",)}
+    return {"scale": ("embed",), "bias": ("embed",)}
+
+
 def init_mlp(kind, d, ff, dtype, device, gen):
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
     p = {"wi": normal((d, ff), s_in, dtype, device, gen),
@@ -97,6 +103,13 @@ def init_mlp(kind, d, ff, dtype, device, gen):
     if kind in ("swiglu", "geglu"):
         p["wg"] = normal((d, ff), s_in, dtype, device, gen)
     return p
+
+
+def mlp_axes(kind):
+    a = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if kind in ("swiglu", "geglu"):
+        a["wg"] = ("embed", "mlp")
+    return a
 
 
 def apply_mlp(kind, x, p):
@@ -145,6 +158,19 @@ def init_attn(d, spec: AttnSpec, dtype, device, gen):
         p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
     return p
+
+
+def attn_axes(spec: AttnSpec):
+    a = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if spec.qk_norm:
+        a["q_norm"] = ("head_dim",)
+        a["k_norm"] = ("head_dim",)
+    return a
 
 
 def _qkv(x, p, spec: AttnSpec, positions):

@@ -32,6 +32,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     return TF.init_params(cfg, seed, device)
 
 
+def param_axes(cfg: ModelConfig):
+    return TF.param_axes(cfg)
+
+
+def abstract_params(cfg: ModelConfig):
+    """``init_params``'s tree on the ``meta`` device: every leaf's shape
+    and dtype, no weight allocated (llama4-maverick's full config has
+    400 B parameters)."""
+    return TF.init_params(cfg, device="meta")
+
+
 def _ring(cfg, spec):
     return cfg.swa_ring_cache and spec.attn_kind in ("swa", "chunked")
 

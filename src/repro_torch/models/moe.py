@@ -74,6 +74,19 @@ def init_moe(d, ff, num_experts, dtype, device, gen, mlp_kind="swiglu",
     return p
 
 
+def moe_axes(mlp_kind="swiglu", shared_expert=False):
+    a = {
+        "router": ("embed", "experts"),
+        "wi": ("experts", "embed", "expert_mlp"),
+        "wo": ("experts", "expert_mlp", "embed"),
+    }
+    if mlp_kind in ("swiglu", "geglu"):
+        a["wg"] = ("experts", "embed", "expert_mlp")
+    if shared_expert:
+        a["shared"] = L.mlp_axes(mlp_kind)
+    return a
+
+
 def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 

@@ -59,6 +59,26 @@ def init_rwkv_timemix(d, n_heads, head_dim, dtype, device, gen, lora_dim=64):
     }
 
 
+def rwkv_timemix_axes():
+    return {
+        "mix_r": ("embed",),
+        "mix_k": ("embed",),
+        "mix_v": ("embed",),
+        "mix_g": ("embed",),
+        "mix_w": ("embed",),
+        "wr": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "heads", "head_dim"),
+        "wv": ("embed", "heads", "head_dim"),
+        "wg": ("embed", "heads", "head_dim"),
+        "w0": ("heads", "head_dim"),
+        "wa": ("embed", "lora"),
+        "wb": ("lora", "heads", "head_dim"),
+        "u": ("heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+        "ln_x": ("embed",),
+    }
+
+
 def _shifted(x, x_prev):
     """x shifted one step right in time, ``x_prev`` [B,D] in front."""
     return torch.cat([x_prev[:, None, :], x[:, :-1, :]], dim=1)
@@ -126,6 +146,10 @@ def init_rwkv_channelmix(d, ff, dtype, device, gen):
     }
 
 
+def rwkv_channelmix_axes():
+    return {"mix_k": ("embed",), "wk": ("embed", "mlp"), "wv": ("mlp", "embed")}
+
+
 def rwkv_channelmix(x, x_prev, p):
     """x: [B,S,D]; x_prev: [B,D]. Returns (out [B,S,D], new x_prev)."""
     xk = x + (_shifted(x, x_prev) - x) * p["mix_k"]
@@ -153,6 +177,21 @@ def init_mamba_head(d, n_heads, head_dim, state_dim, dtype, device, gen):
         "D": torch.ones((n_heads, head_dim), dtype=dtype, device=device),
         "wo": rand((n_heads, head_dim, d), 1.0 / math.sqrt(n_heads * head_dim)),
         "ln": torch.ones(n_heads * head_dim, dtype=dtype, device=device),
+    }
+
+
+def mamba_head_axes():
+    return {
+        "wx": ("embed", "heads", "head_dim"),
+        "wz": ("embed", "heads", "head_dim"),
+        "wB": ("embed", "ssm_state"),
+        "wC": ("embed", "ssm_state"),
+        "wdt": ("embed", "heads"),
+        "dt_bias": ("heads",),
+        "A_log": ("heads",),
+        "D": ("heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+        "ln": ("embed",),
     }
 
 

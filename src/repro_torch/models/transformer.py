@@ -91,6 +91,34 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, device, gen):
     return p
 
 
+def layer_axes(cfg: ModelConfig, spec: LayerSpec):
+    """One layer's logical axes, leaf for leaf as ``init_layer``'s."""
+    if spec.mixer == "rwkv":
+        return {
+            "ln_tm": L.norm_axes(cfg.norm),
+            "tm": S.rwkv_timemix_axes(),
+            "ln_cm": L.norm_axes(cfg.norm),
+            "cm": S.rwkv_channelmix_axes(),
+        }
+    a = {}
+    if has_self_attention(spec):
+        a["ln_attn"] = L.norm_axes(cfg.norm)
+        a["attn"] = L.attn_axes(attn_spec(cfg, spec))
+    if spec.mixer == "hybrid":
+        a["ssm"] = S.mamba_head_axes()
+    if spec.has_cross:
+        a["ln_cross"] = L.norm_axes(cfg.norm)
+        a["cross"] = L.attn_axes(attn_spec(cfg, spec))
+        if cfg.gated_cross:
+            a["cross_gate"] = ()
+    a["ln_mlp"] = L.norm_axes(cfg.norm)
+    if spec.is_moe:
+        a["moe"] = MOE.moe_axes(cfg.mlp, cfg.moe_shared_expert)
+    else:
+        a["mlp"] = L.mlp_axes(cfg.mlp)
+    return a
+
+
 def ssm_state_shape(cfg: ModelConfig, batch: int) -> tuple:
     """A hybrid layer's Mamba state: [B, H, hd, N]."""
     return (batch, cfg.ssm_heads or cfg.num_heads, cfg.head_dim,
@@ -178,10 +206,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
     there), with the JAX package's shapes and scales; the numbers differ
     from JAX's (``models.convert.params_from_numpy`` takes those). Each
     tensor is drawn and cast alone, so the peak is the weights and one
-    tensor's f32 draw."""
+    tensor's f32 draw. On the ``meta`` device nothing is drawn or
+    allocated: the shapes alone (``model.abstract_params``)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     dt = getattr(torch, cfg.dtype)
     d = cfg.d_model
     params = {
@@ -201,6 +232,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
                              for _ in range(cfg.encoder_layers)]
         params["enc_final_norm"] = L.init_norm(cfg.norm, d, dt, device)
     return params
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of ``init_params``'s tree, leaf for leaf: one
+    dict a layer in ``params["layers"]`` (no leading "layers" axis: the
+    port does not stack layers), ``cross_gate`` a 0-d leaf with axes
+    ()."""
+    axes = {
+        "tok_embed": ("vocab", "embed"),
+        "final_norm": L.norm_axes(cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if cfg.pos_embedding == "learned":
+        axes["pos_embed"] = ("pos", "embed")
+    axes["layers"] = [layer_axes(cfg, spec) for spec in layer_specs(cfg)]
+    if cfg.encoder_layers:
+        axes["encoder"] = [layer_axes(cfg, ENC_SPEC)
+                           for _ in range(cfg.encoder_layers)]
+        axes["enc_final_norm"] = L.norm_axes(cfg.norm)
+    return axes
 
 
 # ---------------------------------------------------------------------------
