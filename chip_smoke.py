@@ -279,7 +279,9 @@ Phases (each raises on failure; the script then exits non-zero):
                port's CPU run, at DIST_ROUNDS the two paths are identical
                and B1 launches once a round; rounds/s, commits a round,
                CUDA kernels, device ms and B1's ms a round
-               (torch.profiler) and the busy share; B1's sorted form held
+               (torch.profiler, over graph replays only) and the busy
+               share of those replays' span (CUDA events around the same
+               replays), the unprofiled span beside it; B1's sorted form held
                and timed in turns against its plain version at the
                round's N = 4,096 beside the bound; the process form
                (``all_to_all_single`` over NCCL at world size 1, a file
@@ -4935,25 +4937,31 @@ def dist_run(mesh, cfg, keys, modes, impl):
     return commits, ops.launches, wall
 
 
+def dist_round(cfg, keys, modes, device, kernel: bool):
+    """The one-device form's initial state and round body at DIST_CC
+    shards, as ``make_engine`` builds them."""
+    import torch
+
+    from repro_torch.core import distributed as D
+
+    me = torch.arange(DIST_CC, dtype=torch.int32, device=device)
+    k = torch.from_numpy(keys).to(device).reshape(DIST_CC, -1,
+                                                  cfg.keys_per_txn)
+    m = torch.from_numpy(modes).to(device).reshape(k.shape)
+    state = D.initial_state(cfg, DIST_CC, device)
+    return state, D.make_round(cfg, DIST_CC, me, k, m, kernel=kernel)
+
+
 def dist_round_inputs(cfg, keys, modes, device, rounds: int = 300):
     """The sorted-form inputs of the round with the most requests among
     the first ``rounds`` of an eager kernel-path run (B1 at the
     distributed round's shape)."""
-    import torch
-
-    from repro_torch.core import distributed as D
     from repro_torch.core.lockgrant import REQ_NONE
     from repro_torch.kernels.lock_grant import ops
 
-    n_cc = DIST_CC
-    me = torch.arange(n_cc, dtype=torch.int32, device=device)
-    k = torch.from_numpy(keys).to(device).reshape(n_cc, -1, cfg.keys_per_txn)
-    m = torch.from_numpy(modes).to(device).reshape(k.shape)
-    state = D.initial_state(cfg, n_cc, device)
-
     def run():
         # built under the wrapper: make_round binds lock_grant_sorted
-        round_ = D.make_round(cfg, n_cc, me, k, m, kernel=True)
+        state, round_ = dist_round(cfg, keys, modes, device, kernel=True)
         for _ in range(rounds):
             round_(state)
 
@@ -4964,28 +4972,45 @@ def dist_round_inputs(cfg, keys, modes, device, rounds: int = 300):
     return max(rec, key=lambda a: int((a[1] != REQ_NONE).sum()))
 
 
-def dist_profile(label, mesh, cfg, keys, modes, impl, wall_ms) -> None:
-    """DIST_PROFILED rounds of one path under torch.profiler (CUDA
-    activity; the graph's kernel nodes under replay): CUDA kernels and
-    device ms a round and B1's share, and the busy share against
-    ``wall_ms`` a round of the unprofiled run."""
-    import dataclasses
-
+def dist_profile(label, cfg, keys, modes, impl, device) -> None:
+    """The main path's round graph (``D.round_graph``, ROUNDS_PER_REPLAY
+    rounds a replay) captured and run DIST_PROFILED rounds, then
+    DIST_PROFILED rounds with CUDA events around them (the span
+    unprofiled), then DIST_PROFILED more under torch.profiler (CUDA
+    activity; CUPTI reports each kernel node of a replay) with CUDA
+    events around the same replays: CUDA kernels and device ms a round,
+    B1's share, and the busy share of the profiled replays' span, the
+    one window (the tracing itself widens the gaps between nodes). Each
+    window holds replays only, no copy or capture."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import distributed as D
+    from repro_torch.kernels.lock_grant import ops
 
-    short = dataclasses.replace(cfg, rounds=DIST_PROFILED)
-    fn = D.make_engine(mesh, short, kernel_impl=impl)
-    fn(keys, modes)  # the builds and first launches outside the trace
-    torch.cuda.synchronize()
+    state, round_ = dist_round(cfg, keys, modes, device, impl == "auto")
+    before = ops.launches
+    graph = D.round_graph(round_, state, D.ROUNDS_PER_REPLAY, device)
+    replays = DIST_PROFILED // D.ROUNDS_PER_REPLAY
+    n = replays * D.ROUNDS_PER_REPLAY
+
+    def span() -> float:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(replays):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    span()
+    free_ms = span()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(keys, modes)
-        torch.cuda.synchronize()
+        span_ms = span()
+    ops.launches = before
+    graph.reset()
     kern = device_activity(prof)
-    # the capture's warm-up round runs eagerly: DIST_PROFILED + 1 rounds
-    n = DIST_PROFILED + 1
     n_kernels = sum(c for c, _s in kern.values()) / n
     dev_ms = sum(sec for _c, sec in kern.values()) / n * 1e3
     b1 = [(c, sec) for name, (c, sec) in kern.items()
@@ -4993,12 +5018,16 @@ def dist_profile(label, mesh, cfg, keys, modes, impl, wall_ms) -> None:
     b1_ms = sum(sec for _c, sec in b1) / n * 1e3
     if n_kernels <= 0:
         raise AssertionError(f"{label}: the profiler saw no CUDA kernel")
+    if dev_ms > span_ms:
+        raise AssertionError(f"{label}: device {dev_ms} ms a round over "
+                             f"the replays' span {span_ms} ms")
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:5]
     print(f"profile distributed orthrus {label}: {n_kernels:.1f} CUDA "
-          f"kernels a round, device {dev_ms:.6f} ms a round against "
-          f"{wall_ms:.6f} ms wall (busy share {dev_ms / wall_ms:.4f}); B1 "
-          f"{sum(c for c, _s in b1) / n:.2f} launches and {b1_ms:.6f} ms a "
-          f"round; top: " + "; ".join(
+          f"kernels a round, device {dev_ms:.6f} ms a round against a "
+          f"replay span of {span_ms:.6f} ms a round (busy share "
+          f"{dev_ms / span_ms:.4f}; unprofiled span {free_ms:.6f} ms a "
+          f"round); B1 {sum(c for c, _s in b1) / n:.2f} "
+          f"launches and {b1_ms:.6f} ms a round; top: " + "; ".join(
               f"{name[:50]} {sec / n * 1e6:.2f} us" for name, (_c, sec)
               in top))
 
@@ -5121,10 +5150,9 @@ def main_path_slice12(device) -> dict:
               f"launches; kernel path {kw:.3f} s ({full.rounds / kw:.1f} "
               f"rounds/s), plain path {pw:.3f} s ({full.rounds / pw:.1f} "
               f"rounds/s) ({power})")
-        for impl, (_c, _l, w) in runs.items():
+        for impl in runs:
             dist_profile(f"{label}, {'kernel' if impl == 'auto' else 'plain'}"
-                         f" path", mesh, full, keys, modes, impl,
-                         w / full.rounds * 1e3)
+                         f" path", full, keys, modes, impl, device)
         if hot:
             # B1's sorted form at the distributed round's shape
             args = dist_round_inputs(full, keys, modes, device)

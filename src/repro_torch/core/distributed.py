@@ -34,8 +34,8 @@ most one message a round: the key segments, and the order within them,
 are those of the reference's per-shard ``lex_order``.
 
 On a CUDA device the one-device form runs its rounds as replays of a
-captured CUDA graph (``ROUNDS_PER_REPLAY`` rounds each, the remainder
-one more graph) and reads the commits once at the end; on the CPU, and
+counted CUDA graph (``core.graphs``; ``ROUNDS_PER_REPLAY`` rounds each,
+the remainder one more graph) and reads the commits once at the end; on the CPU, and
 in the process form, the loop is eager. Nothing is read on the host
 inside a round.
 """
@@ -47,6 +47,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.graphs import CountedGraph
 from repro_torch.core.lockgrant import (
     KEY_SENTINEL,
     REQ_NONE,
@@ -292,35 +293,17 @@ def make_round(cfg: DistConfig, n_cc: int, me: torch.Tensor, keys, modes,
     return round_
 
 
-class _RoundGraph:
-    """``k`` rounds captured as one CUDA graph over the state buffers.
-    The first round runs once before capture on a scratch copy, on a side
-    stream (a kernel's first launch may not happen under capture); that
-    warm-up and the capture do not count in the kernels' ``launches``, and
-    each replay adds what the capture recorded."""
+def round_graph(round_, state: dict, k: int, device) -> CountedGraph:
+    """``k`` rounds captured as one counted CUDA graph over ``state``'s
+    buffers; the warm-up round runs on a scratch copy."""
 
-    def __init__(self, round_, state: dict, k: int, device):
-        from repro_torch.kernels.lock_grant import ops as lg_ops
+    def body():
+        for _ in range(k):
+            round_(state)
 
-        before = lg_ops.launches
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            round_({n: v.clone() for n, v in state.items()})
-        torch.cuda.current_stream(device).wait_stream(side)
-        warm = lg_ops.launches
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            for _ in range(k):
-                round_(state)
-        self.per_replay = lg_ops.launches - warm
-        lg_ops.launches = before
-
-    def replay(self) -> None:
-        from repro_torch.kernels.lock_grant import ops as lg_ops
-
-        self.graph.replay()
-        lg_ops.launches += self.per_replay
+    return CountedGraph(
+        lambda: round_({n: v.clone() for n, v in state.items()}), body,
+        device)
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -360,11 +343,11 @@ def make_engine(mesh, cfg: DistConfig, *, kernel_impl: str = "auto"):
         round_ = make_round(cfg, n_cc, me, k, m, kernel=kernel, group=group)
         if device.type == "cuda" and group is None and cfg.rounds > 0:
             per = min(ROUNDS_PER_REPLAY, cfg.rounds)
-            graph = _RoundGraph(round_, state, per, device)
+            graph = round_graph(round_, state, per, device)
             for _ in range(cfg.rounds // per):
                 graph.replay()
             if cfg.rounds % per:
-                rest = _RoundGraph(round_, state, cfg.rounds % per, device)
+                rest = round_graph(round_, state, cfg.rounds % per, device)
                 rest.replay()
         else:
             for _ in range(cfg.rounds):

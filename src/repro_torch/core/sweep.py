@@ -59,6 +59,8 @@ from repro_torch.core import engine as engine_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.convert import plan_from_numpy
 from repro_torch.core.engine import NCAT, EngineConfig, PlanMeta, SimResult
+from repro_torch.core.graphs import CountedGraph
+from repro_torch.sharding.policies import cell_mesh
 
 # Engine-code version tag of the reference this port reproduces.
 ENGINE_VERSION = "4-mega-dispatch"
@@ -189,15 +191,6 @@ def run_chunk(dispatch, p: dict, state: dict, r_end: int) -> dict:
     return state
 
 
-def _counted_ops() -> list:
-    """The ops modules of the kernels a step may launch. Each counts its
-    launches on the host, so a replay adds what its capture recorded."""
-    from repro_torch.kernels.dep_wavefront import ops as dw_ops
-    from repro_torch.kernels.lock_grant import ops as lg_ops
-
-    return [lg_ops, dw_ops]
-
-
 def _signature(d: dict) -> tuple:
     return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(d.items()))
 
@@ -220,13 +213,12 @@ def _build_step(cfg: EngineConfig, meta: PlanMeta, device):
 
 
 class _Graph:
-    """One dispatch captured as a CUDA graph over static buffers: the
-    plan dict, the state dict and a 0-d int32 ``r_end``. The dispatch
+    """One dispatch captured as a counted CUDA graph
+    (:class:`~repro_torch.core.graphs.CountedGraph`) over static buffers:
+    the plan dict, the state dict and a 0-d int32 ``r_end``. The dispatch
     ends by copying its output state into the state buffers, so that
-    replays chain. Capturing runs the dispatch first on scratch copies of
-    the state, on a side stream (the first launches, such as a kernel's
-    ``cudaFuncSetAttribute``, may not happen under capture); neither that
-    warm-up nor the capture counts in the kernels' ``launches``."""
+    replays chain. The warm-up runs the dispatch twice on scratch copies
+    of the state."""
 
     def __init__(self, dispatch, p: dict, state: dict, device):
         t0 = time.perf_counter()
@@ -234,25 +226,16 @@ class _Graph:
         self.state = {k: v.clone() for k, v in state.items()}
         self.r_end = torch.zeros((), dtype=torch.int32, device=device)
         self.bound_p = p
-        ops = _counted_ops()
-        before = [m.launches for m in ops]
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+
+        def warm():
             scratch = {k: v.clone() for k, v in self.state.items()}
             for _ in range(2):
                 scratch = dispatch(self.p, scratch, scratch["r"] + 1)
-        torch.cuda.current_stream(device).wait_stream(side)
-        del scratch
-        warm = [m.launches for m in ops]
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            out = dispatch(self.p, self.state, self.r_end)
-            _copy_back(out, self.state)
-            del out
-        self.per_replay = [(m, m.launches - w) for m, w in zip(ops, warm)]
-        for m, b in zip(ops, before):
-            m.launches = b
+
+        def body():
+            _copy_back(dispatch(self.p, self.state, self.r_end), self.state)
+
+        self.graph = CountedGraph(warm, body, device)
         self.capture_s = time.perf_counter() - t0
 
     def load(self, p: dict, state: dict) -> None:
@@ -268,8 +251,6 @@ class _Graph:
 
     def replay(self) -> None:
         self.graph.replay()
-        for m, n in self.per_replay:
-            m.launches += n
 
 
 def _copy_back(out: dict, static: dict) -> None:
@@ -338,16 +319,16 @@ class ChunkRunner:
 
 
 class _GroupGraph:
-    """The guarded dispatches of a group's C cells captured as one CUDA
-    graph over static buffers: per cell a plan dict and a state dict,
-    and one [C] int32 ``r_end`` (cell i reads element i). Cell i's
-    dispatch runs on a side stream of its own, forked off the capture
-    and joined back, so the cells are independent branches of the
-    graph; the graph ends by copying every cell's ``r`` into ``r_out``.
-    Each cell is warmed up first on scratch copies of its state (as
-    :class:`_Graph`); a replay adds to the kernels' ``launches`` what
-    the capture recorded, every branch's (C x K a replay on a kernel
-    path, the inactive branches' included)."""
+    """The guarded dispatches of a group's C cells captured as one
+    counted CUDA graph over static buffers: per cell a plan dict and a
+    state dict, and one [C] int32 ``r_end`` (cell i reads element i).
+    Cell i's dispatch runs on a side stream of its own, forked off the
+    capture and joined back, so the cells are independent branches of
+    the graph; the graph ends by copying every cell's ``r`` into
+    ``r_out``. Each cell is warmed up first on scratch copies of its
+    state (as :class:`_Graph`); a replay adds to the kernels'
+    ``launches`` what the capture recorded, every branch's (C x K a
+    replay on a kernel path, the inactive branches' included)."""
 
     def __init__(self, dispatches: list, ps: list, states: list, device):
         t0 = time.perf_counter()
@@ -356,36 +337,26 @@ class _GroupGraph:
         self.state = [{k: v.clone() for k, v in s.items()} for s in states]
         self.r_end = torch.zeros(n, dtype=torch.int32, device=device)
         self.r_out = torch.zeros(n, dtype=torch.int32, device=device)
-        ops = _counted_ops()
-        before = [m.launches for m in ops]
-        cur = torch.cuda.current_stream(device)
         branches = [torch.cuda.Stream(device) for _ in range(n)]
-        side = branches[0]
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
+
+        def warm():
             for d, p, s in zip(dispatches, self.p, self.state):
                 scratch = {k: v.clone() for k, v in s.items()}
                 for _ in range(2):
                     scratch = d(p, scratch, scratch["r"] + 1)
-                del scratch
-        cur.wait_stream(side)
-        warm = [m.launches for m in ops]
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+
+        def body():
             cap = torch.cuda.current_stream(device)
             for d, br, p, s, r_end in zip(dispatches, branches, self.p,
                                           self.state, self.r_end):
                 br.wait_stream(cap)
                 with torch.cuda.stream(br):
-                    out = d(p, s, r_end)
-                    _copy_back(out, s)
-                    del out
+                    _copy_back(d(p, s, r_end), s)
             for br in branches:
                 cap.wait_stream(br)
             torch.stack([s["r"] for s in self.state], out=self.r_out)
-        self.per_replay = [(m, m.launches - w) for m, w in zip(ops, warm)]
-        for m, b in zip(ops, before):
-            m.launches = b
+
+        self.graph = CountedGraph(warm, body, device)
         self.capture_s = time.perf_counter() - t0
 
     def load(self, ps: list, states: list) -> None:
@@ -396,8 +367,6 @@ class _GroupGraph:
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
-        for m, n in self.per_replay:
-            m.launches += n
         return self.r_out
 
 
@@ -766,15 +735,15 @@ class _GroupRun:
 
     def _blocks(self) -> list[tuple[np.ndarray, torch.device]]:
         """Contiguous blocks of cells, one per card of ``mode.devices``
-        (clamped to the cards there are and to the cell count)."""
+        (clamped to the cards there are and to the cell count): the
+        devices of ``sharding.cell_mesh``, the first cards in order."""
         dev = self.device
         cards = torch.cuda.device_count() if dev.type == "cuda" else 1
         d = max(1, min(self.mode.devices, cards, self.n))
         idxs = np.array_split(np.arange(self.n), d)
         if d == 1:
             return [(idxs[0], dev)]
-        return [(ix, torch.device("cuda", (dev.index + j) % cards))
-                for j, ix in enumerate(idxs)]
+        return list(zip(idxs, cell_mesh(d).devices))
 
     def prepare(self) -> None:
         """Plan tensors and initial states of every cell, on its block's

@@ -8,8 +8,8 @@ A ``Mesh`` is axis names and sizes plus what backs them:
 * **one device**: one ``torch.device``, and every axis is a tensor
   dimension on it. ``core.distributed`` runs its ``cc`` shards this way,
   as a leading dimension exchanged by transposes.
-* **local devices**: one local device per position (``cell_mesh``; the
-  sweep places its cell blocks on them itself).
+* **local devices**: one local device per position (``cell_mesh``, on
+  whose cards the sweep places its cell blocks).
 * **process**: a ``torch.distributed.device_mesh.DeviceMesh`` over an
   initialised process group, one rank per position (gloo on the CPU,
   NCCL across cards).

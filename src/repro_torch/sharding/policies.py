@@ -229,31 +229,27 @@ def batch_sharding(mesh: Mesh, rules: dict, batch_spec):
     return tree_map(leaf, batch_spec, is_leaf=_is_shape_leaf)
 
 
-def cache_sharding(cfg, mesh: Mesh, rules: dict, cache_spec_tree,
-                   stacked: bool = False):
+def cache_sharding(cfg, mesh: Mesh, rules: dict, cache_spec_tree):
     """Sharding for the decode cache tree (``models.model.cache_spec``'s
-    layout, one dict per layer; ``stacked`` for leaves with a leading
-    layers axis, which the port's caches do not have).
+    layout, one dict per layer, no leading layers axis).
 
     Leaf roles are inferred from rank/shape against the model config —
-    k/v: [.., B, S, kv, hd]; kpos: [.., B, S]; ssm states and shift
-    buffers replicate batch over data only.
+    k/v: [B, S, kv, hd]; kpos: [B, S]; ssm states and shift buffers
+    replicate batch over data only.
     """
 
     def leaf(s):
         shp = _shape(s)
-        lead = ("layers",) if (stacked and len(shp) > 0) else ()
-        core = shp[len(lead):]
-        if len(core) == 4 and core[2] == cfg.num_kv_heads:
-            axes = lead + ("batch", "cache_seq", "cache_kv", "head_dim")
-        elif len(core) == 4:  # ssm state [B,H,hd,N] / rwkv [B,H,hd,hd]
-            axes = lead + ("batch", "heads", "head_dim", "ssm_state")
-        elif len(core) == 3:  # [B,T,d]
-            axes = lead + ("batch", "seq", "embed_act")
-        elif len(core) == 2:
-            axes = lead + ("batch", "cache_seq")
+        if len(shp) == 4 and shp[2] == cfg.num_kv_heads:
+            axes = ("batch", "cache_seq", "cache_kv", "head_dim")
+        elif len(shp) == 4:  # ssm state [B,H,hd,N] / rwkv [B,H,hd,hd]
+            axes = ("batch", "heads", "head_dim", "ssm_state")
+        elif len(shp) == 3:  # [B,T,d]
+            axes = ("batch", "seq", "embed_act")
+        elif len(shp) == 2:
+            axes = ("batch", "cache_seq")
         else:
-            axes = lead + ("batch",)
+            axes = ("batch",)
         return spec_for(axes, shp, mesh, rules)
 
     return tree_map(leaf, cache_spec_tree, is_leaf=_is_shape_leaf)
