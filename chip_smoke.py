@@ -135,9 +135,9 @@ Phases (each raises on failure; the script then exits non-zero):
                and the plain path, deadlock_free, dgcc, quecc,
                quecc_frag_pipe and scheduled on the kernel path, the three
                dynamic-2PL schemes, the partitioned store, fig17's
-               deadline-shed cell; the lock-table cells at SIM_K's 1,000
-               rounds, the batch cells at SIM_K_BATCH's 2,000, half their
-               depth in phases 4-10) run three ways: the
+               deadline-shed cell; the lock-table cells at SIM_K11's 500
+               rounds, the batch cells at SIM_K11_BATCH's 1,000, a
+               quarter of their depth in phases 4-10) run three ways: the
                eager loop at K = 1 (``sweep.simulate_eager``, the
                oracle), the graph at K = 1 and at K = 8; orthrus and
                twopl_waitdie also at K = 5 (a cache hit on K = 8's
@@ -286,6 +286,31 @@ Phases (each raises on failure; the script then exits non-zero):
                round's N = 4,096 beside the bound; the process form
                (``all_to_all_single`` over NCCL at world size 1, a file
                store under build/) equal to the one-device form at n_cc 1.
+ 17. main path, slice 13: training — ``launch.train.build_trainer`` on
+               one card (TRAIN_CELLS: gemma3-1b at its published config,
+               AdamW with f32 state, 8 steps of 4 x 2,048 tokens;
+               rwkv6-1.6b, AdamW, 3 steps of 2 x 256 (2 on the plain
+               path); mixtral-8x22b at its published width cut to 2
+               layers, Adafactor, 2 steps of 2 x 1,024), bf16 params, per-layer remat "nothing",
+               batches from the port's ``TokenPipeline``, each on the
+               kernel path (B4, B5 and B3 forward and in the remat
+               recompute, their backwards their plain versions' through
+               ``kernels.autograd``) and the plain path from the same
+               weights: step 0's grads finite and non-zero on every leaf
+               (each expert's too), the attention projections', routers'
+               and rwkv time mix's, kind by kind, within TRAIN_GRAD_NUDGES
+               x how far one bf16 unit of B4's and B5's outputs moves
+               that kind (a bound below TRAIN_GRAD_POWER) of the plain
+               path's, step 0's losses within TRAIN_LOSS_TOL; gemma3-1b
+               checkpointed before its last step and that step resumed
+               in a fresh trainer within TRAIN_RESUME_TOL; launches
+               exactly twice a layer a kernel-path step; step ms,
+               tokens/s, peak memory, the kernel path's step 0
+               profiled (busy share, plain-backward device shares);
+               each Function at a real layer's shape: its
+               forward (the kernel's) held to the plain version's with
+               phase 2's tolerances, its backward against autograd
+               through the plain version.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -410,7 +435,7 @@ BF16_OPS_PER_S = 989e12  # tensor cores, dense
 # loop over time issues about 7 kernels per step per layer (seconds of
 # host launches per prompt of 1,800 tokens), so it serves the first
 # RWKV_PLAIN_REQUESTS requests only: a cut in requests, not in width
-RWKV_PLAIN_REQUESTS = 4
+RWKV_PLAIN_REQUESTS = 2
 RWKV_CHECK_SEQ = 3000  # the real prefill B5 is held on
 # kernel vs plain version: tests/test_kernels.py's absolute 2e-4 at its
 # input scales (about 0.1-0.2). On real activations the state sums
@@ -558,21 +583,28 @@ SIM_K = dict(max_rounds=1000, warmup_rounds=250, chunk_rounds=250,
 SIM_K_BATCH = dict(max_rounds=2000, warmup_rounds=500, chunk_rounds=500,
                    target_commits=10**9)
 K_FUSED = 8
+# phase 11's cells at half of those depths (500 and 1,000 rounds): each
+# runs three to five ways, the eager oracle issuing every kernel from the
+# host, and the script must end inside its time limit on a slow host
+SIM_K11 = dict(SIM_K, max_rounds=500, warmup_rounds=125, chunk_rounds=125)
+SIM_K11_BATCH = dict(SIM_K_BATCH, max_rounds=1000, warmup_rounds=250,
+                     chunk_rounds=250)
 # name, engine kwargs, workload kwargs, depth, the kernel on its path
 K_CELLS = (
-    ("orthrus", ORTHRUS_FULL, YCSB_FULL, SIM_K, "lock_grant"),
+    ("orthrus", ORTHRUS_FULL, YCSB_FULL, SIM_K11, "lock_grant"),
     ("orthrus plain path", dict(ORTHRUS_FULL, kernel_impl="jnp"), YCSB_FULL,
-     SIM_K, None),
-    ("deadlock_free", DF_FULL, YCSB_FULL, SIM_K, None),
-    ("dgcc", DGCC_FULL, YCSB_FULL, SIM_K_BATCH, "dep_wavefront"),
-    ("quecc", QUECC_FULL, YCSB_FULL, SIM_K_BATCH, "dep_wavefront"),
-    ("quecc_frag_pipe", QUECC_FRAG_PIPE_FULL, YCSB_FIG14, SIM_K_BATCH,
+     SIM_K11, None),
+    ("deadlock_free", DF_FULL, YCSB_FULL, SIM_K11, None),
+    ("dgcc", DGCC_FULL, YCSB_FULL, SIM_K11_BATCH, "dep_wavefront"),
+    ("quecc", QUECC_FULL, YCSB_FULL, SIM_K11_BATCH, "dep_wavefront"),
+    ("quecc_frag_pipe", QUECC_FRAG_PIPE_FULL, YCSB_FIG14, SIM_K11_BATCH,
      "dep_wavefront"),
-    ("scheduled", SCHEDULED_FULL, YCSB_FIG18, SIM_K_BATCH, "dep_wavefront"),
-) + tuple((p, dict(protocol=p, n_exec=80), YCSB_FULL, SIM_K, None)
+    ("scheduled", SCHEDULED_FULL, YCSB_FIG18, SIM_K11_BATCH,
+     "dep_wavefront"),
+) + tuple((p, dict(protocol=p, n_exec=80), YCSB_FULL, SIM_K11, None)
           for p in DL_PROTOCOLS) + (
-    ("partitioned_store", PSTORE_FULL, YCSB_FIG6, SIM_K, None),
-    ("fig17_i200_deadline_shed", FIG17_SHED, YCSB_FIG16, SIM_K, None),
+    ("partitioned_store", PSTORE_FULL, YCSB_FIG6, SIM_K11, None),
+    ("fig17_i200_deadline_shed", FIG17_SHED, YCSB_FIG16, SIM_K11, None),
 )
 # the cells that also run K = 5 (K = 8's runner: a cache hit) and K = 32
 K_MORE = ("orthrus", "twopl_waitdie")
@@ -627,19 +659,58 @@ ORACLE_CELLS = (
 # 8-shard cell and its per-shard commits under the JAX reference; then
 # fig13's orthrus split (16 CC + 64 exec lanes) as 16 CC shards x 4 exec
 # lanes over YCSB_FULL's 10 M records (625,000 keys a shard), each lane
-# re-running one of the workload's first 64 txns, at the figures' depth
+# re-running one of the workload's first 64 txns, at a quarter of the
+# figures' depth (16,000 rounds until phase 17 came: the script's limit)
 DIST_TEST = dict(lanes_per_shard=8, keys_per_txn=3, rounds=200,
                  keys_per_shard=512, msg_cap=32)
 DIST_TEST_COMMITS = [200, 200, 175, 200, 200, 175, 200, 200]
 DIST_CC = 16
 DIST_FULL = dict(lanes_per_shard=4, keys_per_txn=10, exec_rounds=3,
                  msg_cap=16, keys_per_shard=625_000)
-DIST_ROUNDS = 16_000
+DIST_ROUNDS = 4_000
 DIST_CPU_ROUNDS = 500  # the depth at which the card is held to the CPU
 DIST_HOTS = (64, 0)  # 64 hot keys, all on shard 0; uniform
 DIST_PROFILED = 400
+# the process form over NCCL, eager at 143-187 rounds/s: 500 rounds (2,000
+# until the script's time limit forced the cut)
 DIST_NCCL = dict(DIST_FULL, lanes_per_shard=4, keys_per_shard=10_000_000,
-                 rounds=2000)
+                 rounds=500)
+# Training (phase 17, slice 13): (arch, depth cut, optimizer, batch, seq,
+# steps on the kernel path and on the plain path) through
+# launch.train.build_trainer on one card, bf16 params, remat "nothing",
+# the whole loss (loss_chunk 0, the JAX launcher's). mixtral at its
+# published width cut to 2 layers: serving's 8 do not fit with their
+# grads (40.9 GB + 40.9 GB). rwkv6-1.6b's steps are the phase's longest
+# (B5's plain backward loops over time, 7-10 s a kernel-path step at 512
+# tokens): 256 tokens a sequence, and 2 steps on its plain path
+TRAIN_CELLS = (
+    ("gemma3-1b", {}, dict(name="adamw"), 4, 2048, (8, 8)),
+    ("rwkv6-1.6b", {}, dict(name="adamw"), 2, 256, (3, 2)),
+    ("mixtral-8x22b", dict(pattern_repeats=2), dict(name="adafactor"), 2,
+     1024, (2, 2)),
+)
+TRAIN_LR = 1e-3  # the JAX launcher's default
+TRAIN_CKPT_ARCH = "gemma3-1b"  # saved after its next-to-last step
+# step 0's loss, kernel path against plain path (bf16 forwards)
+TRAIN_LOSS_TOL = 0.02
+# the watched step-0 grads (wq/wk/wv, routers, rwkv's time mix), kernel
+# path against plain path, ||g_kernel - g_plain|| / ||g_plain||, are held
+# kind by kind (attention projections, routers, time-mix projections,
+# decay and bonus) to TRAIN_GRAD_NUDGES x how far the kernel path's own
+# grads of that kind move at most when B4's and B5's outputs move by one
+# bf16 unit (the yardstick phase 13 set hymba's logits by), or to
+# TRAIN_GRAD_FLOOR where that is larger; that bound must stay below
+# TRAIN_GRAD_POWER, since a missing gradient gives about 1
+TRAIN_GRAD_NUDGES = 2.0
+TRAIN_GRAD_POWER = 0.8
+TRAIN_GRAD_FLOOR = 0.02
+# the checkpoint's next step against the uninterrupted run's
+TRAIN_RESUME_TOL = 1e-3
+# each autograd Function's backward against autograd through the plain
+# version on the same inputs: the same kernels, so equal up to the
+# atomics of index_add_ and embedding-style backwards; held to this
+# share of the plain gradient's largest |value|
+TRAIN_VJP_RTOL = 1e-3
 
 
 def fingerprint(res, include_metrics: bool = False) -> dict:
@@ -2187,18 +2258,28 @@ def cuda_kernels_per_call(fn, calls: int = 100) -> tuple:
     """(CUDA kernels, and memory copies and sets, per call of ``fn``;
     the kernels' names) under torch.profiler, over ``calls`` calls after
     a warm-up call. The profiler may miss a few of the first launches of
-    its window: the counts are means, not exact."""
+    its window: the counts are means, not exact. A window in which it
+    recorded no device activity at all (it once lost a whole window of
+    100 launches on an H100) is measured again, up to twice: ``fn``
+    launches work every call, so an empty window is the profiler's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if kern:
+            break
+        print(f"cuda_kernels_per_call: the profiler recorded no device "
+              f"activity over {calls} calls (attempt {attempt + 1}); "
+              f"measuring again")
     copies = [e for e in kern if e.key.startswith(("Memcpy", "Memset"))]
     kern = [e for e in kern if e not in copies]
     return (sum(e.count for e in kern) / calls,
@@ -5183,6 +5264,531 @@ def main_path_slice12(device) -> dict:
     return dict(lock_grant=total, b1_err=err)
 
 
+def train_vjp_check(label, via_kernel, plain, inputs, grads_out,
+                    holds) -> float:
+    """One autograd Function (``kernels.autograd.kernel_call``) at a real
+    layer's shape. Its forward outputs (the kernel's) are held to
+    ``plain``'s on the same inputs with phase 2's tolerances, one entry
+    of ``holds`` an output: "bits" bit-equal (B3's plan), "bf16" FA_TOL
+    or one unit in the last place (B4), "f32" RWKV_TOL or RWKV_REL_TOL of
+    the largest |value| (B5's o and state). Then the input gradients
+    through ``via_kernel`` (the plain version's backward) against
+    autograd through ``plain`` on the same output gradients: a check of
+    the wiring, the same kernels on both sides. Returns the largest
+    gradient difference as a share of the plain gradient's largest
+    |value|; raises past TRAIN_VJP_RTOL or where a forward disagrees."""
+    import torch
+
+    def run(fn):
+        xs = [x.detach().requires_grad_(True) for x in inputs]
+        outs = fn(*xs)
+        outs = (outs,) if isinstance(outs, torch.Tensor) else tuple(outs)
+        pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+        return [o.detach() for o in outs], torch.autograd.grad(
+            [o for o, _ in pairs], xs, [g for _, g in pairs],
+            allow_unused=True)
+
+    t0 = time.perf_counter()
+    outs, got = run(via_kernel)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs_plain, want = run(plain)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if len(outs) != len(outs_plain) or len(outs) != len(holds):
+        raise AssertionError(f"{label}: {len(outs)} outputs against the "
+                             f"plain version's {len(outs_plain)}")
+    readings, bad = [], []
+    for i, (o, w, hold) in enumerate(zip(outs, outs_plain, holds)):
+        if o.shape != w.shape or o.dtype != w.dtype:
+            raise AssertionError(f"{label}: output {i} {tuple(o.shape)} "
+                                 f"{o.dtype} against {tuple(w.shape)} "
+                                 f"{w.dtype}")
+        if hold == "bits":
+            ok = torch.equal(o, w)
+            readings.append(f"output {i} {'bit-equal' if ok else 'differs'}")
+        else:
+            diff = (o.float() - w.float()).abs()
+            if hold == "bf16":
+                tol = torch.clamp(bf16_ulp(w.float()),
+                                  min=FA_TOL["bfloat16"])
+            else:
+                tol = max(RWKV_TOL, RWKV_REL_TOL * float(w.abs().max()))
+            ratio = float((diff / tol).max())
+            ok = ratio <= 1 and bool(torch.isfinite(o).all())
+            readings.append(f"output {i} max_abs_err {float(diff.max()):.6g}"
+                            f" ({ratio:.4f} of the {hold} tolerance)")
+        if not ok:
+            bad.append(i)
+    err = 0.0
+    for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            raise AssertionError(f"{label}: a gradient on one side only")
+        if w is not None:
+            err = max(err, float((g.float() - w.float()).abs().max())
+                      / max(float(w.abs().max()), 1e-30))
+    print(f"train vjp {label}: inputs "
+          f"{[tuple(x.shape) for x in inputs]}; the kernel's forward "
+          f"against the plain version's: {'; '.join(readings)}; the "
+          f"Function's backward against autograd through the plain "
+          f"version: max |diff| {err:.3e} of the plain gradient's largest "
+          f"|value| (tolerance {TRAIN_VJP_RTOL}); {t1 - t0:.3f} s and "
+          f"{t2 - t1:.3f} s")
+    if bad:
+        raise AssertionError(f"train vjp {label}: the kernel's forward "
+                             f"output(s) {bad} disagree with the plain "
+                             f"version's")
+    if not err <= TRAIN_VJP_RTOL:
+        raise AssertionError(f"train vjp {label}: {err} > {TRAIN_VJP_RTOL}")
+    return err
+
+
+def train_vjp_checks(device) -> None:
+    """Phase 17's Function checks at the training cells' real layer
+    shapes (random inputs at the models' scales): B4 at gemma3-1b's
+    global layer (q [4, 2048, 4, 256], k/v one head, full, bf16), B5 at
+    rwkv6-1.6b's layer 0 (r/k/v/w [2, 32, 256, 64] f32 as [B,H,S,hd]
+    views of [B,S,H,hd], u and the zero state), B3's plan at mixtral's
+    layer 0 (2,048 tokens, 8 experts, top 2, capacity 640)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.autograd import kernel_call
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rw_ops
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    g = get_config("gemma3-1b")
+    spec = TF.attn_spec(g, g.pattern[-1])  # the global layer
+    B, S = 4, 2048
+    q = randn((B, S, g.num_heads, g.head_dim), dtype=torch.bfloat16)
+    k, v = (randn((B, S, g.num_kv_heads, g.head_dim), dtype=torch.bfloat16)
+            for _ in range(2))
+
+    def attend(q_, k_, v_):
+        return L._attend_blocked(q_, k_, v_, spec)
+
+    train_vjp_check(
+        "flash_attention, gemma3-1b global layer",
+        lambda *x: kernel_call(lambda *y: fa_ops.flash_attention(
+            *y, kind=spec.kind, window=spec.window), attend, *x,
+            name="flash_attention"),
+        attend, (q, k, v), (randn(q.shape, dtype=torch.bfloat16),),
+        ("bf16",))
+
+    r = get_config("rwkv6-1.6b")
+    B, S = next(c[3:5] for c in TRAIN_CELLS if c[0] == "rwkv6-1.6b")
+    H, D = r.ssm_heads, r.head_dim
+    rkv = [randn((B, S, H, D), 0.2).transpose(1, 2) for _ in range(3)]
+    w = torch.exp(-torch.exp(randn((B, S, H, D), 0.5) - 0.5)).transpose(1, 2)
+    u = randn((H, D), 0.1)
+    s0 = torch.zeros((B, H, D, D), device=device)
+    train_vjp_check(
+        "rwkv6_scan, rwkv6-1.6b layer 0",
+        lambda *x: kernel_call(rw_ops.rwkv6_scan, rwkv6_scan_ref, *x,
+                               name="rwkv6_scan"),
+        rwkv6_scan_ref, (*rkv, w, u, s0), (randn((B, H, S, D)), None),
+        ("f32", "f32"))
+
+    m = get_config("mixtral-8x22b")
+    n = 2 * 1024
+    cap = MOE.capacity_for(n, m.experts_per_token, m.num_experts,
+                           m.capacity_factor)
+    probs = torch.softmax(randn((n, m.num_experts)), -1)
+    fields = ("slot_token", "slot_weight", "load")
+
+    def plan_of(planner):
+        return lambda p: tuple(planner(p, m.experts_per_token, cap)[f]
+                               for f in fields)
+
+    train_vjp_check(
+        f"moe_dispatch, mixtral-8x22b layer 0's plan (capacity {cap}; "
+        f"outputs {', '.join(fields)})",
+        plan_of(MOE._kernel_plan), plan_of(MOE.plan_dispatch), (probs,),
+        (None, randn((m.num_experts * cap,)), None), ("bits",) * 3)
+
+
+@contextlib.contextmanager
+def nudged_kernels():
+    """B4's and B5's outputs (the attention output, the scan's o) moved
+    each by one bf16 unit up or down inside the block: the rounding
+    yardstick of phase 17's grad check. The signs come from a generator
+    seeded with SEED at every call, so a layer's forward and its remat
+    recompute (the same call at the same shape) see the same move."""
+    import torch
+
+    from repro_torch.models import layers, ssm
+
+    def nudge(o):
+        gen = torch.Generator(device=o.device).manual_seed(SEED)
+        up = torch.randint(0, 2, o.shape, generator=gen, device=o.device,
+                           dtype=torch.bool)
+        step = bf16_ulp(o.float())
+        return (o.float() + torch.where(up, step, -step)).to(o.dtype)
+
+    fa, rw = layers.flash_attention, ssm.rwkv6_scan
+    layers.flash_attention = lambda *a, **kw: nudge(fa(*a, **kw))
+    ssm.rwkv6_scan = lambda *a, **kw: (lambda o, st: (nudge(o), st))(
+        *rw(*a, **kw))
+    try:
+        yield
+    finally:
+        layers.flash_attention, ssm.rwkv6_scan = fa, rw
+
+
+def grad_gaps(got: dict, want: dict) -> dict:
+    """{name: ||got - want|| / ||want||} over matching watched grads."""
+    import torch
+
+    return {name: float(torch.linalg.norm(g - want[name])
+                        / torch.linalg.norm(want[name]))
+            for name, g in got.items()}
+
+
+def watched_grads(grads) -> dict:
+    """The step-0 grads phase 17 holds across the two paths: every
+    attention layer's wq/wk/wv, every MoE router, and the rwkv time mix's
+    projections, decay and bonus (the ones a kernel without a backward
+    would starve). {(its kind, its path): f32 copy}."""
+    from torch.utils import _pytree as pytree
+
+    out = {}
+    for path, g in pytree.tree_flatten_with_path(grads)[0]:
+        kind = grad_group([getattr(k, "key", None) for k in path])
+        if kind:
+            out[kind, pytree.keystr(path)] = g.float().clone()
+    return out
+
+
+def grad_group(keys) -> str | None:
+    """The kind of a watched leaf (its path's keys), each held to its own
+    bound in phase 17; None for a leaf not watched."""
+    if "attn" in keys and keys[-1] in ("wq", "wk", "wv"):
+        return "attention wq/wk/wv"
+    if keys[-1] == "router":
+        return "routers"
+    if "tm" in keys and keys[-1] in ("wr", "wk", "wv"):
+        return "time-mix wr/wk/wv"
+    if "tm" in keys and keys[-1] in ("w0", "wa", "wb", "u"):
+        return "time-mix decay and bonus"
+    return None
+
+
+def grad_bounds(arch, errs: dict, moved: dict) -> dict:
+    """Phase 17's grad check, one kind of leaf (``grad_group``) at a
+    time: each leaf's ||kernel - plain|| / ||plain|| (``errs``) within
+    TRAIN_GRAD_NUDGES x the largest move one bf16 unit of B4's and B5's
+    outputs gives a leaf of its kind (``moved``), or TRAIN_GRAD_FLOOR
+    where that is larger; the bound below TRAIN_GRAD_POWER, so that a
+    missing gradient (about 1) fails. Prints each kind's readings;
+    returns {kind: (bound, largest err, its leaf)}; raises."""
+    kinds = {}
+    for kind, name in errs:
+        kinds.setdefault(kind, []).append((kind, name))
+    out = {}
+    for kind, names in sorted(kinds.items()):
+        errs_k = sorted(errs[n] for n in names)
+        moved_k = sorted(moved[n] for n in names)
+        bound = max(TRAIN_GRAD_NUDGES * moved_k[-1], TRAIN_GRAD_FLOOR)
+        worst = max(names, key=errs.get)
+        print(f"train {arch}: {kind}, {len(names)} leaves: kernel vs plain "
+              f"median {errs_k[len(names) // 2]:.4e}, largest "
+              f"{errs[worst]:.4e} ({worst[1]}); one bf16 unit moves them by "
+              f"median {moved_k[len(names) // 2]:.4e}, largest "
+              f"{moved_k[-1]:.4e}: bound {bound:.4e} (max of "
+              f"{TRAIN_GRAD_NUDGES} x and {TRAIN_GRAD_FLOOR}, below "
+              f"{TRAIN_GRAD_POWER})")
+        if not bound < TRAIN_GRAD_POWER:
+            raise AssertionError(f"train {arch}: rounding alone moves the "
+                                 f"{kind} grads by {moved_k[-1]}: the check "
+                                 f"cannot see a missing gradient")
+        if not errs[worst] <= bound:
+            raise AssertionError(f"train {arch}: {worst[1]}'s grad differs "
+                                 f"from the plain path's by {errs[worst]} "
+                                 f"> {bound}")
+        out[kind] = (bound, errs[worst], worst[1])
+    return out
+
+
+def check_every_grad(arch, grads) -> None:
+    """Every leaf's grad finite with a non-zero entry; an expert bank's
+    in each expert."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    for path, g in pytree.tree_flatten_with_path(grads)[0]:
+        name = pytree.keystr(path)
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"train {arch}: {name}'s grad not finite")
+        per = (g.reshape(g.shape[0], -1).abs().amax(1)
+               if "moe" in name and g.dim() == 3 else g.abs().max()[None])
+        if not bool((per > 0).all()):
+            raise AssertionError(f"train {arch}: {name}'s grad is zero "
+                                 f"(somewhere: {per.tolist()})")
+
+
+def profile_train_step(arch, run) -> tuple:
+    """``run()``, one kernel-path training step, under torch.profiler (CPU
+    and CUDA): the device seconds of its kernels, and of the kernels that
+    start inside B4's and B5's plain backwards (their ``record_function``
+    ranges on the device), each as a share of the step's kernel time.
+    Returns ({"device_s", "shares"}, run's result)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+    t1 = time.perf_counter()
+    kernels, ranges = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if e.is_user_annotation():
+            if e.name().endswith("plain backward"):
+                ranges.setdefault(e.name(), []).append(
+                    (e.start_ns(), e.start_ns() + e.duration_ns()))
+        else:
+            kernels.append((e.start_ns(), e.duration_ns()))
+    total = sum(d for _s, d in kernels) / 1e9
+    inside = {}
+    for name, rs in ranges.items():
+        rs.sort()
+        starts = [a for a, _b in rs]
+        inside[name] = sum(
+            d for s, d in kernels
+            if (i := bisect.bisect_right(starts, s) - 1) >= 0
+            and s < rs[i][1]) / 1e9
+    shares = {k: v / total for k, v in inside.items()}
+    print(f"train {arch} profile: {t1 - t0:.3f} s profiled, the trace "
+          f"read in {time.perf_counter() - t1:.3f} s")
+    print(f"train {arch} profile: one kernel-path step, {len(kernels)} "
+          f"device activities, {total:.4f} s of device time; inside the "
+          f"plain backwards: "
+          + (", ".join(f"{k} {inside[k]:.4f} s in {len(ranges[k])} ranges "
+                       f"({shares[k]:.4f} of the step's device time)"
+                       for k in sorted(inside))
+             or "not measured (no device range in the trace)"))
+    return {"device_s": total, "shares": shares}, out
+
+
+def main_path_slice13(device, cells=TRAIN_CELLS) -> dict:
+    """Phase 17: training on one card through ``launch.train``'s
+    ``build_trainer`` (TRAIN_CELLS), each cell on the kernel path and the
+    plain path (``kernel_impl="jnp"``) from the same seeded weights and
+    ``TokenPipeline`` batches. Step 0 is the train step's own parts
+    (``loss_and_grads``, then ``opt_update``), so its grads are held:
+    finite and non-zero on every leaf on the kernel path, the watched
+    ones (``watched_grads``) within the bound of their kind
+    (``grad_bounds``: TRAIN_GRAD_NUDGES x the kind's largest move under
+    ``nudged_kernels``) of the plain path's, its loss within
+    TRAIN_LOSS_TOL; the other steps are ``run_step``.
+    TRAIN_CKPT_ARCH's kernel path saves a checkpoint before its last
+    step, restored into a fresh trainer whose last step's loss is held
+    to the uninterrupted one's. Prints step ms, tokens/s, peak memory,
+    the kernel path's step 0 profiled (its device time, the busy share
+    against the median step, the plain backwards' shares); the launches
+    of B3, B4 and B5 over every path are returned (and checked against
+    the layers). Then the Functions at real shapes (``train_vjp_checks``),
+    not counted."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import sweep
+    from repro_torch.launch.mesh import one_device_mesh
+    from repro_torch.launch.train import build_trainer, token_pipeline
+    from repro_torch.models import transformer as TF
+    from repro_torch.optim import OptConfig, opt_update
+    from repro_torch.train.train_step import TrainConfig, loss_and_grads
+
+    sweep.set_runner_cache_capacity(sweep.set_runner_cache_capacity(1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    power = gpu_name_and_power()
+    mesh = one_device_mesh((1, 1), ("data", "model"), device)
+    ops = kernel_ops()
+    want = {"flash_attention": 0, "rwkv6_scan": 0, "moe_dispatch": 0}
+    rows = []
+    reset_launches()
+    for arch, cut, opt_kw, B, S, steps_on in cells:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        ocfg = OptConfig(lr=TRAIN_LR, **opt_kw)
+        tcfg = TrainConfig(loss_chunk=0, opt=ocfg)  # build_trainer's
+        pipe = token_pipeline(cfg, mesh, B, S)
+        specs = TF.layer_specs(cfg)
+        per_step = {"flash_attention": sum(map(TF.has_self_attention, specs)),
+                    "rwkv6_scan": sum(s.mixer == "rwkv" for s in specs),
+                    "moe_dispatch": sum(bool(s.is_moe) for s in specs)}
+        res = {}
+        for impl in ("auto", "jnp"):
+            path = "kernel" if impl == "auto" else "plain"
+            _cfg, init, run_step, _dev = build_trainer(
+                arch, mesh, batch=B, seq=S, mcfg=cfg, device=device,
+                kernel_impl=impl, opt=ocfg)
+            torch.cuda.reset_peak_memory_stats()
+            state = init()
+            b0 = {k: torch.from_numpy(v).to(device)
+                  for k, v in pipe.batch(0).items()}
+            nudge = None
+            if impl == "auto":
+                # the yardstick first: step 0's grads with B4's and B5's
+                # outputs moved by one bf16 unit (launches counted)
+                with nudged_kernels():
+                    _l, grads = loss_and_grads(cfg, tcfg, state["params"],
+                                               b0, kernel_impl=impl)
+                nudge = watched_grads(grads)
+                del grads, _l
+                for k, n in per_step.items():
+                    want[k] += 2 * n
+            def step0():
+                # reads ``state`` when called: a default argument would
+                # keep the old params and optimizer state alive after it
+                loss, g = loss_and_grads(cfg, tcfg, state["params"], b0,
+                                         kernel_impl=impl)
+                new = opt_update(ocfg, g, state["opt"], state["params"])
+                torch.cuda.synchronize()
+                return loss, g, new
+
+            t0 = time.perf_counter()
+            # the kernel path's step 0 runs under the profiler: its wall
+            # is left out of the median step anyway
+            prof, (loss0, grads, new) = (
+                profile_train_step(arch, step0) if impl == "auto"
+                else (None, step0()))
+            times = [time.perf_counter() - t0]
+            state = dict(zip(("params", "opt"), new))
+            del new
+            if impl == "auto":
+                check_every_grad(arch, grads)
+            watched = watched_grads(grads)
+            del grads
+            losses = [float(loss0)]
+            steps = steps_on[impl == "jnp"]
+            ckpt, ckpt_dir = None, None
+            for step in range(1, steps):
+                if (impl == "auto" and arch == TRAIN_CKPT_ARCH
+                        and step == steps - 1):
+                    (ROOT / "build").mkdir(exist_ok=True)
+                    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_",
+                                                dir=ROOT / "build")
+                    ckpt = Checkpointer(ckpt_dir)
+                    t1 = time.perf_counter()
+                    ckpt.maybe_save(step - 1, state, force=True)
+                    print(f"train {arch}: state after step {step - 1} "
+                          f"copied to the host for its checkpoint in "
+                          f"{time.perf_counter() - t1:.3f} s")
+                t0 = time.perf_counter()
+                state, m = run_step(state, pipe.batch(step))
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            if impl == "auto":
+                for k, n in per_step.items():
+                    want[k] += 2 * n * steps
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"train {arch} {path}: losses {losses}")
+            steady = sorted(times[1:])
+            step_s = steady[len(steady) // 2]
+            if prof is not None:
+                prof["busy"] = prof["device_s"] / step_s
+            print(f"train {arch} {path} path: {steps} steps of {B} x {S} "
+                  f"tokens, losses {losses}; step s {times} (step 0 the "
+                  f"train step's parts, first call included"
+                  + (", profiled" if prof else "") + f"); median step "
+                  f"{step_s * 1e3:.3f} ms, {B * S / step_s:.1f} tokens/s"
+                  + (f", profiled step 0's device time {prof['device_s']:.4f}"
+                     f" s of it (busy share {prof['busy']:.4f})" if prof
+                     else "")
+                  + f"; peak card memory {peak} B; {power}")
+            res[impl] = dict(loss0=losses[0], watched=watched, nudge=nudge,
+                             step_ms=step_s * 1e3, tokens_s=B * S / step_s,
+                             peak=peak, prof=prof, last=losses[-1])
+            if ckpt is not None:
+                ckpt.wait()
+                target = state
+                del state
+                gc.collect()
+                t1 = time.perf_counter()
+                restored = restore_checkpoint(ckpt_dir, steps - 2, target,
+                                              device)
+                del target
+                t2 = time.perf_counter()
+                run_fresh = build_trainer(arch, mesh, batch=B, seq=S,
+                                          mcfg=cfg, device=device,
+                                          kernel_impl=impl, opt=ocfg)[2]
+                _st, m = run_fresh(restored, pipe.batch(steps - 1))
+                resumed = float(m["loss"])
+                want["flash_attention"] += 2 * per_step["flash_attention"]
+                want["rwkv6_scan"] += 2 * per_step["rwkv6_scan"]
+                want["moe_dispatch"] += 2 * per_step["moe_dispatch"]
+                size = sum(f.stat().st_size
+                           for f in Path(ckpt_dir).rglob("*.npy"))
+                print(f"train {arch}: checkpoint of step {steps - 2} "
+                      f"({size} B) restored into a fresh trainer in "
+                      f"{t2 - t1:.3f} s; its step {steps - 1} loss "
+                      f"{resumed} against the uninterrupted {losses[-1]} "
+                      f"(|diff| {abs(resumed - losses[-1]):.3e}, tolerance "
+                      f"{TRAIN_RESUME_TOL})")
+                if not abs(resumed - losses[-1]) <= TRAIN_RESUME_TOL:
+                    raise AssertionError(f"train {arch}: the resumed step's "
+                                         f"loss {resumed} != {losses[-1]}")
+                del restored, _st
+                shutil.rmtree(ckpt_dir)
+            else:
+                del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        k, p = res["auto"], res["jnp"]
+        d_loss = abs(k["loss0"] - p["loss0"])
+        errs = grad_gaps(k["watched"], p["watched"])
+        moved = grad_gaps(k["nudge"], k["watched"])
+        print(f"train {arch}: step 0 loss kernel {k['loss0']} plain "
+              f"{p['loss0']} (|diff| {d_loss:.3e}, tolerance "
+              f"{TRAIN_LOSS_TOL}); {len(errs)} watched grads, "
+              f"||kernel - plain|| / ||plain|| held kind by kind:")
+        if not d_loss <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"train {arch}: step 0 losses differ")
+        bounds = grad_bounds(arch, errs, moved)
+        rows.append(dict(arch=arch, kernel_ms=k["step_ms"],
+                         plain_ms=p["step_ms"], kernel_tok_s=k["tokens_s"],
+                         plain_tok_s=p["tokens_s"], kernel_peak=k["peak"],
+                         plain_peak=p["peak"], grad_bounds=bounds,
+                         loss_diff=d_loss,
+                         busy=(k["prof"] or {}).get("busy"),
+                         shares=(k["prof"] or {}).get("shares")))
+        del res, k, p
+        gc.collect()
+    got = {name: ops[name].launches for name in want}
+    print(f"train launches over every path: {got} (expected {want}: twice "
+          f"a layer a kernel-path step, the forward and the remat "
+          f"recompute, the rounding yardstick's step 0 and the resumed "
+          f"step included; none on the plain path)")
+    if got != want:
+        raise AssertionError(f"train launches {got} != {want}")
+    print("train summary: " + json.dumps(rows))
+    train_vjp_checks(device)
+    return got
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5313,6 +5919,11 @@ def main() -> int:
                     main_path_slice12, device)
     rows[0]["launches"] += slice12["lock_grant"]
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], slice12["b1_err"])
+    slice13 = phase("main path, slice 13: training", main_path_slice13,
+                    device)
+    rows[2]["launches"] += slice13["flash_attention"]
+    rows[3]["launches"] += slice13["rwkv6_scan"]
+    rows[4]["launches"] += slice13["moe_dispatch"]
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -1,1 +1,2 @@
-"""Entry points of the port (``serve``) and its meshes (``mesh``)."""
+"""Entry points of the port (``serve``, ``train``) and its meshes
+(``mesh``)."""

@@ -63,3 +63,24 @@ def cache_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """A JAX decode cache (numpy leaves) in the port's layout."""
     return {"pos": _tensors(tree["pos"], device),
             "layers": _layers(cfg, tree, device)}
+
+
+def opt_state_from_numpy(cfg: ModelConfig, ocfg, tree, device="cuda"):
+    """A JAX optimizer state (``repro.optim.init_opt_state``'s tree, numpy
+    leaves: ``step`` and ``mu`` stacked like the params) as the port's,
+    so a JAX run resumes in the port. Each ``mu`` leaf must be the kind
+    the port's ``init_opt_state`` gives for ``ocfg`` ({"m", "v"}, or
+    {"vr", "vc"} where Adafactor factors the port's leaf)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.optim.optimizers import _factored, _is_moment
+
+    mu = params_from_numpy(cfg, tree["mu"], device)
+    for st in pytree.tree_leaves(mu, is_leaf=_is_moment):
+        factored = "vr" in st
+        shape = (tuple(st["vr"].shape) + (st["vc"].shape[-1],) if factored
+                 else tuple(st["m"].shape))
+        if factored != (ocfg.name == "adafactor" and _factored(shape, ocfg)):
+            raise ValueError(f"a {'factored' if factored else 'full'} moment "
+                             f"of a leaf of shape {shape} under {ocfg}")
+    return {"step": _tensors(tree["step"], device), "mu": mu}

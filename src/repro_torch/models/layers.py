@@ -8,8 +8,10 @@ dropped (one card has no mesh).
 Prefill attention goes through kernel B4 (``kernels.flash_attention``,
 hand-written CUDA) where ``use_kernel(kernel_impl, device)`` says so, and
 otherwise through ``_attend_blocked``, the model's plain formulation.
-Decode attention, cross-attention, the MLP, the norms and the
-projections are plain PyTorch, as the JAX package left them to XLA.
+Under autograd B4's backward is ``_attend_blocked``'s
+(``kernels.autograd.kernel_call``). Decode attention, cross-attention,
+the MLP, the norms and the projections are plain PyTorch, as the JAX
+package left them to XLA.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import use_kernel
+from repro_torch.kernels.autograd import kernel_call
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 NEG_INF = -1e30
@@ -245,7 +248,8 @@ def self_attention(x, p, spec: AttnSpec, positions=None, q_offset=0,
     """Prefill self-attention. x: [B,S,D] -> ([B,S,D], (k, v)).
 
     ``kernel_impl`` picks kernel B4 or ``_attend_blocked``
-    (``repro_torch.kernels.use_kernel``).
+    (``repro_torch.kernels.use_kernel``); under autograd B4's gradient is
+    ``_attend_blocked``'s.
     """
     B, S, _ = x.shape
     if positions is None:
@@ -257,8 +261,12 @@ def self_attention(x, p, spec: AttnSpec, positions=None, q_offset=0,
         # "bidir" is causal in the model's mask (``_block_mask``), which is
         # B4's "full"
         kind = "full" if spec.kind == "bidir" else spec.kind
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              kind=kind, window=spec.window)
+        out = kernel_call(
+            lambda q_, k_, v_: flash_attention(q_, k_, v_, kind=kind,
+                                               window=spec.window),
+            lambda q_, k_, v_: _attend_blocked(q_, k_, v_, spec),
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            name="flash_attention")
     else:
         out = _attend_blocked(q, k, v, spec, q_offset=q_offset)
     return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), (k, v)

@@ -8,7 +8,10 @@ dropped, and the combine is one scatter-add. The whole plan (top-k,
 positions, dispatch table, load) is one launch of kernel B3
 (``kernels.moe_dispatch``, hand-written CUDA) where
 ``use_kernel(kernel_impl, device)`` says so, and otherwise
-``plan_dispatch``, B3's plain version. The router,
+``plan_dispatch``, B3's plain version. Under autograd the kernel's
+``slot_weight`` is differentiable in the router probabilities with the
+plain plan's VJP (``kernels.autograd.kernel_call``); the integer plan
+stays the kernel's. The router,
 the expert products, the gather and the combine are plain PyTorch, as
 the JAX package left them to XLA.
 
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import use_kernel
+from repro_torch.kernels.autograd import kernel_call
 from repro_torch.kernels.moe_dispatch.ops import moe_dispatch_plan
 from repro_torch.kernels.moe_dispatch.ref import (
     moe_dispatch_plan_grouped_ref,
@@ -113,6 +117,24 @@ def plan_dispatch(router_probs, top_k, capacity):
     return moe_dispatch_plan_ref(router_probs, top_k, capacity)
 
 
+def _kernel_plan(router_probs, top_k, capacity):
+    """B3's plan (``moe_dispatch_plan``), its ``slot_weight`` carrying
+    ``plan_dispatch``'s gradient where autograd needs one."""
+    fields = ("slot_token", "slot_weight", "load")
+    if router_probs.dim() == 3:
+        fields += ("count",)
+
+    def fn(planner):
+        def fields_of(p):
+            plan = planner(p, top_k=top_k, capacity=capacity)
+            return tuple(plan[f] for f in fields)
+        return fields_of
+
+    return dict(zip(fields, kernel_call(fn(moe_dispatch_plan),
+                                        fn(plan_dispatch), router_probs,
+                                        name="moe_dispatch")))
+
+
 def capacity_for(n_tokens, top_k, num_experts, capacity_factor, floor=128):
     """The planned mode's static per-expert capacity: ``capacity_factor``
     times the mean load, truncated, then rounded up to a multiple of 128
@@ -153,7 +175,7 @@ def apply_moe(x, p, *, top_k, capacity_factor, mlp_kind="swiglu",
         out = torch.einsum("end,ne->nd", y, gate.to(y.dtype))
         load = routed_share(eidx, E)
     else:
-        planner = (moe_dispatch_plan if use_kernel(kernel_impl, x.device)
+        planner = (_kernel_plan if use_kernel(kernel_impl, x.device)
                    else plan_dispatch)
         G = dispatch_shards if dispatch_shards > 1 else 1
         if N % G:

@@ -7,11 +7,13 @@ prompt and decode runs one step of it, carrying a [B,H,hd,hd] state.
 Both go through kernel B5 (``kernels.rwkv6_scan``, hand-written CUDA)
 where ``use_kernel(kernel_impl, device)`` says so, and otherwise through
 its plain version, the loop over time the JAX package runs as a
-``lax.scan``. The projections, the decay and the norms are plain
-PyTorch, as the JAX package left them to XLA.
+``lax.scan``. Under autograd B5's backward is the plain version's
+(``kernels.autograd.kernel_call``). The projections, the decay and the
+norms are plain PyTorch, as the JAX package left them to XLA.
 
 The Mamba head has no kernel in the JAX package: it is the same loop over
-time on an f32 [B,H,hd,N] state, a ``lax.scan`` there, plain PyTorch here.
+time on an f32 [B,H,hd,N] state, a ``lax.scan`` there, plain PyTorch here
+(in place, or out of place where autograd records it).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import use_kernel
+from repro_torch.kernels.autograd import kernel_call, needs_grad
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.models.layers import normal, rmsnorm
@@ -113,7 +116,9 @@ def rwkv_timemix(x, x_prev, state, p, kernel_impl="auto", state_out=None):
     [B,S,D], new x_prev [B,D], new state). With ``state_out`` the new
     state is written there (it may be ``state`` itself) and returned.
     ``kernel_impl`` picks kernel B5 or its plain version
-    (``repro_torch.kernels.use_kernel``).
+    (``repro_torch.kernels.use_kernel``). Under autograd B5's gradient is
+    the plain version's, and ``state_out`` raises: the kernel would write
+    it behind autograd's back.
     """
     B, S, _ = x.shape
     H, HD = p["u"].shape
@@ -123,7 +128,11 @@ def rwkv_timemix(x, x_prev, state, p, kernel_impl="auto", state_out=None):
                      for a in (r, k, v, wdec))
     u = p["u"].float()
     if use_kernel(kernel_impl, x.device):
-        o, state = rwkv6_scan(r, k, v, wdec, u, state, state_out=state_out)
+        if state_out is not None and needs_grad(r, k, v, wdec, u, state):
+            raise ValueError("rwkv_timemix: state_out under autograd")
+        o, state = kernel_call(
+            lambda *a: rwkv6_scan(*a, state_out=state_out), rwkv6_scan_ref,
+            r, k, v, wdec, u, state, name="rwkv6_scan")
     else:
         o, state = rwkv6_scan_ref(r, k, v, wdec, u, state)
         if state_out is not None:
@@ -215,14 +224,31 @@ def mamba_head(x, state, p):
     x32 = xh.float()
     inp = dt[..., None] * x32  # [B,S,H,hd]: dt_t * x_t of every step
     st = state.float().clone()
-    rows = st.view(B, H * HD, st.shape[-1])  # y_t = rows . C_t
-    ys = torch.empty((S, B, H * HD, 1), dtype=torch.float32, device=x.device)
-    for t in range(S):
-        # st = decay_t * st + (dt_t * x_t) outer B_t; y_t = st . C_t: three
-        # kernels a step, in place
-        st.mul_(decay[:, t, :, None, None])
-        st.addcmul_(inp[:, t, :, :, None], Bt[:, t, None, None, :])
-        torch.bmm(rows, Ct[:, t, :, None], out=ys[t])
+    N = st.shape[-1]
+    if needs_grad(inp, decay, Bt, Ct):
+        # st = decay_t * st + (dt_t * x_t) outer B_t; y_t = st . C_t: the
+        # three kernels a step out of place, for autograd, the inputs
+        # split over time once (``unbind``: its backward is one stack,
+        # where indexing a step would scatter into the whole input each
+        # step)
+        ys = []
+        for dec_t, inp_t, b_t, c_t in zip(decay.unbind(1), inp.unbind(1),
+                                          Bt.unbind(1), Ct.unbind(1)):
+            st = torch.addcmul(st * dec_t[:, :, None, None],
+                               inp_t[..., None], b_t[:, None, None, :])
+            ys.append(torch.bmm(st.view(B, H * HD, N), c_t[:, :, None]))
+        ys = torch.stack(ys)
+    else:
+        # the same three kernels in place: serving's host issues every
+        # one, and the out-of-place loop's allocations made hymba-1.5b's
+        # prefill about 11% slower on an H100 (PERF.md, section 6)
+        rows = st.view(B, H * HD, N)  # y_t = rows . C_t
+        ys = torch.empty((S, B, H * HD, 1), dtype=torch.float32,
+                         device=x.device)
+        for t in range(S):
+            st.mul_(decay[:, t, :, None, None])
+            st.addcmul_(inp[:, t, :, :, None], Bt[:, t, None, None, :])
+            torch.bmm(rows, Ct[:, t, :, None], out=ys[t])
     y = ys[..., 0].transpose(0, 1).reshape(B, S, H, HD)
     y = y + p["D"][None, None].float() * x32
     y = (y * F.silu(z.float())).reshape(B, S, H * HD)

@@ -11,13 +11,24 @@ repeat r the pattern positions l0, l1, ...; then the tail
 in order. Early fusion (llama4-maverick) is ``_embed``'s: the first
 ``early_fusion_tokens`` rows of the embedded prompt are replaced by
 ``extras["vision_embeds"]``.
+
+Training (``loss_fn``) rematerialises each layer under
+``torch.utils.checkpoint`` where grad mode is on (the JAX package
+checkpoints each pattern repeat); under ``torch.no_grad()``, as in
+serving, ``forward`` runs the layers as they are.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
@@ -313,16 +324,88 @@ def _lm_head(params, cfg, x):
     return x @ params["lm_head"]
 
 
+_MM = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+_BMM = {torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default}
+# jax.checkpoint_policies' nothing_saveable, checkpoint_dots and
+# checkpoint_dots_with_no_batch_dims, as the matmuls each one saves
+REMAT_SAVES = {"nothing": frozenset(), "dots": frozenset(_MM | _BMM),
+               "dots_no_batch": frozenset(_MM)}
+
+
+def _remat_context(saves):
+    def policy(_ctx, op, *_args, **_kw):
+        return (CheckpointPolicy.MUST_SAVE if op in saves
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
 def forward(params, cfg: ModelConfig, tokens, extras=None, *,
+            remat: bool = True, remat_policy: str = "nothing",
             kernel_impl="auto"):
-    """Full-sequence forward. Returns (hidden [B,S,D], aux_loss)."""
+    """Full-sequence forward. Returns (hidden [B,S,D], aux_loss).
+
+    With ``remat`` and grad mode on, each layer runs under
+    ``torch.utils.checkpoint``: ``remat_policy`` "nothing" keeps only
+    its input, "dots" also every matmul's output, "dots_no_batch" those
+    of the matmuls without a batch dimension (the projections, not the
+    attention scores). The values are the same either way."""
+    saves = REMAT_SAVES[remat_policy]
     extras = extras or {}
     x = _embed(params, cfg, tokens, extras)
     cross = _cross_tokens(params, cfg, extras, kernel_impl)
     aux_total = 0.0
-    for p, spec in zip(params["layers"], layer_specs(cfg)):
+
+    def run(x, p, spec):
         x, a, _ = apply_layer(x, p, cfg, spec, cross_tokens=cross,
                               kernel_impl=kernel_impl)
+        return x, a
+
+    context = ({"context_fn": functools.partial(_remat_context, saves)}
+               if saves else {})
+    for p, spec in zip(params["layers"], layer_specs(cfg)):
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(run, x, p, spec, use_reentrant=False,
+                              **context)
+        else:
+            x, a = run(x, p, spec)
         aux_total = aux_total + a
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     return x, aux_total
+
+
+def _token_ce(params, cfg, x, targets):
+    """Each position's f32 cross entropy [B,s], x [B,s,D] against targets
+    [B,s]: logsumexp minus the gold logit."""
+    logits = _lm_head(params, cfg, x).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return lse - gold
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat=True,
+            remat_policy="nothing", loss_chunk: int = 0, kernel_impl="auto"):
+    """Causal-LM cross entropy (+ 0.01 x the MoE aux loss). batch:
+    ``tokens``, ``targets`` [B,S] and optional ``extras``. Returns
+    (loss, {"ce", "aux"}). Where ``loss_chunk`` divides S and is less
+    than S, the logits are taken ``loss_chunk`` positions at a time, each
+    chunk under ``torch.utils.checkpoint``, so [B,S,V] is never alive at
+    once."""
+    x, aux = forward(params, cfg, batch["tokens"], batch.get("extras"),
+                     remat=remat, remat_policy=remat_policy,
+                     kernel_impl=kernel_impl)
+    targets = batch["targets"]
+    B, S_, _ = x.shape
+    if loss_chunk and S_ % loss_chunk == 0 and S_ > loss_chunk:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, S_, loss_chunk):
+            xc, tc = x[:, c0:c0 + loss_chunk], targets[:, c0:c0 + loss_chunk]
+            if torch.is_grad_enabled():
+                ce = checkpoint(_token_ce, params, cfg, xc, tc,
+                                use_reentrant=False)
+            else:
+                ce = _token_ce(params, cfg, xc, tc)
+            total = total + torch.sum(ce)
+        loss = total / (B * S_)
+    else:
+        loss = torch.mean(_token_ce(params, cfg, x, targets))
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}

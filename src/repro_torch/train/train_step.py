@@ -1,0 +1,96 @@
+"""Training step: microbatched grad accumulation + optimizer update (the
+port of ``repro.train.train_step``).
+
+The step is a plain function of (params, opt_state, batch) on dicts of
+tensors. Each microbatch's gradient comes from ``loss_fn`` under
+per-layer remat (``models.transformer.forward``) through
+``torch.autograd.grad``; with several microbatches they accumulate in
+f32 and are divided by their number, and so is the loss; with one they
+stay in the params' dtype, as ``jax.value_and_grad`` leaves them.
+``grad_reduce``, where given, reduces (grads, loss) across
+data-parallel ranks before the update (``launch.train`` fills it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as TF
+from repro_torch.optim import OptConfig, opt_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    microbatches: int = 1
+    remat_policy: str = "nothing"  # 'nothing' | 'dots' | 'dots_no_batch'
+    loss_chunk: int = 512  # chunked CE loss (0 = whole sequence)
+    opt: OptConfig = OptConfig()
+
+
+def _split_micro(batch, n):
+    def f(x):
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} does not split into {n} "
+                             f"microbatches")
+        return x.reshape((n, b // n) + tuple(x.shape[1:]))
+
+    return pytree.tree_map(f, batch)
+
+
+def loss_and_grads(mcfg: ModelConfig, tcfg: TrainConfig, params, batch, *,
+                   kernel_impl="auto"):
+    """(loss, grads) of one (micro)batch: ``loss_fn`` under remat, and
+    its gradient in each param's dtype (zeros for a param the forward
+    does not read, as ``jax.grad`` gives)."""
+    flat, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    with torch.enable_grad():
+        loss, _ = TF.loss_fn(pytree.tree_unflatten(leaves, spec), mcfg,
+                             batch, remat=True,
+                             remat_policy=tcfg.remat_policy,
+                             loss_chunk=tcfg.loss_chunk,
+                             kernel_impl=kernel_impl)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, flat)]
+    return loss.detach(), pytree.tree_unflatten(grads, spec)
+
+
+def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *,
+                    kernel_impl="auto", grad_reduce=None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"})``. ``grad_reduce(grads, loss) -> (grads,
+    loss)`` runs between the backward and the update."""
+
+    def train_step(params, opt_state, batch):
+        if tcfg.microbatches > 1:
+            micro = _split_micro(batch, tcfg.microbatches)
+            gsum, lsum = None, None
+            for i in range(tcfg.microbatches):
+                mb = pytree.tree_map(lambda x, i=i: x[i], micro)
+                loss, g = loss_and_grads(mcfg, tcfg, params, mb,
+                                         kernel_impl=kernel_impl)
+                if gsum is None:
+                    gsum = pytree.tree_map(lambda a: a.float(), g)
+                    lsum = loss
+                else:
+                    gsum = pytree.tree_map(lambda a, b: a + b.float(),
+                                           gsum, g)
+                    lsum = lsum + loss
+            grads = pytree.tree_map(lambda a: a / tcfg.microbatches, gsum)
+            loss = lsum / tcfg.microbatches
+        else:
+            loss, grads = loss_and_grads(mcfg, tcfg, params, batch,
+                                         kernel_impl=kernel_impl)
+        if grad_reduce is not None:
+            grads, loss = grad_reduce(grads, loss)
+        params, opt_state, om = opt_update(tcfg.opt, grads, opt_state,
+                                           params)
+        return params, opt_state, {"loss": loss, **om}
+
+    return train_step
