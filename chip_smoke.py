@@ -135,9 +135,9 @@ Phases (each raises on failure; the script then exits non-zero):
                and the plain path, deadlock_free, dgcc, quecc,
                quecc_frag_pipe and scheduled on the kernel path, the three
                dynamic-2PL schemes, the partitioned store, fig17's
-               deadline-shed cell; the lock-table cells at SIM_K11's 500
-               rounds, the batch cells at SIM_K11_BATCH's 1,000, a
-               quarter of their depth in phases 4-10) run three ways: the
+               deadline-shed cell; the lock-table cells at SIM_K11's 256
+               rounds, the batch cells at SIM_K11_BATCH's 512, about an
+               eighth of their depth in phases 4-10) run three ways: the
                eager loop at K = 1 (``sweep.simulate_eager``, the
                oracle), the graph at K = 1 and at K = 8; orthrus and
                twopl_waitdie also at K = 5 (a cache hit on K = 8's
@@ -155,9 +155,9 @@ Phases (each raises on failure; the script then exits non-zero):
  12. main path, slice 8: the multi-cell sweep — ``sweep.run_cells`` at
                the paper's width: Fig 13's contention axis (its 8
                protocols at 40 lanes, the message-based ones 8 + 32 at
-               window 4, x hot sets 1,024, 64 and 16: 24 cells, SIM_K's
-               depth) per cell through ``run_simulation`` and as groups
-               under SERIAL_MODE and SweepMode(1, 2, early exit): a group
+               window 4, x hot sets 1,024, 64 and 16: 24 cells,
+               SIM_SWEEP's depth) per cell through ``run_simulation``
+               and as groups under SERIAL_MODE and SweepMode(1, 2, early exit): a group
                of C cells is one CUDA graph with a branch per cell (a
                side stream each), one replay and one read of the [C]
                ``r`` vector per dispatch of every cell. Every fingerprint
@@ -184,7 +184,8 @@ Phases (each raises on failure; the script then exits non-zero):
                width with random weights from SEED, one at a time on a
                card the earlier models have left, through
                ``ServingEngine.run(requests, extras)`` (SLICE9_CELLS: 8
-               slots of 4,096, 16 new tokens a request) on the kernel
+               slots of 4,096, 8 requests, hymba's 2, 16 new tokens a
+               request) on the kernel
                path and on the plain path: flash_attention launches
                once per self-attention layer of every prefill (the
                encoder's included) and never on the plain path; each
@@ -311,6 +312,23 @@ Phases (each raises on failure; the script then exits non-zero):
                forward (the kernel's) held to the plain version's with
                phase 2's tolerances, its backward against autograd
                through the plain version.
+ 18. main path, slice 14: the DTensor trainer, GPipe and the roofline —
+               (a) phase 17's cells through ``build_trainer`` on a
+               ``DeviceMesh`` over NCCL at world size 1 (data 1, model
+               1): params and optimizer state DTensors, the sharding
+               context live, B3, B4 and B5 launched on local shards
+               (``sharding.ctx.local_call``); step 0's loss and watched
+               grads held to phase 17's (bit-equal, or within phase 17's
+               bound of each kind), the DTensor step's ms beside phase
+               17's; (b) GPipe in the one-device form at full width:
+               gemma3-1b's 24 grouped layers as 4 stages of 6, 4
+               microbatches of 1 x 2,048 tokens, bf16, kernel path,
+               forward and backward: outputs bit-equal to the layers run
+               one microbatch at a time, param grads within
+               PIPE_GRAD_RTOL, B4 launched 96 times in the forward; (c)
+               each training cell traced on ``meta`` and priced at the
+               H100's peaks (``launch.roofline``): its compute and
+               memory lower bounds beside its measured ms a step.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -473,19 +491,19 @@ MIXTRAL_MIN_AGREEMENT = 0.9
 # width (random weights and extras from SEED) with phase 6's slots and
 # cache; 16 new tokens a request. Per cell: arch, requests, prompt
 # lengths, plain-path requests. stablelm, starcoder2, qwen3 and
-# llama-3.2-vision take phase 6's 16 prompts; hymba 4 of 1,100-1,400
-# tokens (past its 1,024 window), since its Mamba head's loop over time
-# issues three kernels a token a layer on both paths (a cut in requests,
-# not in width); whisper 16 of 16-400 tokens, inside the real model's
-# 448 positions
+# llama-3.2-vision take the first 8 of phase 6's 16 prompts (the
+# script's time limit); hymba 2 of 1,100-1,400 tokens (past its 1,024
+# window), since its Mamba head's loop over time issues three kernels a
+# token a layer on both paths (a cut in requests, not in width); whisper
+# 8 of 16-400 tokens, inside the real model's 448 positions
 SLICE9_NEW_TOKENS = 16
 SLICE9_CELLS = (
-    ("stablelm-1.6b", 16, SERVE_PROMPT_LENS, 4),
-    ("starcoder2-3b", 16, SERVE_PROMPT_LENS, 4),
-    ("qwen3-32b", 16, SERVE_PROMPT_LENS, 4),
-    ("hymba-1.5b", 4, (1100, 1400), 2),
-    ("whisper-tiny", 16, (16, 400), 4),
-    ("llama-3.2-vision-11b", 16, SERVE_PROMPT_LENS, 4),
+    ("stablelm-1.6b", 8, SERVE_PROMPT_LENS, 4),
+    ("starcoder2-3b", 8, SERVE_PROMPT_LENS, 4),
+    ("qwen3-32b", 8, SERVE_PROMPT_LENS, 4),
+    ("hymba-1.5b", 2, (1100, 1400), 1),
+    ("whisper-tiny", 8, (16, 400), 4),
+    ("llama-3.2-vision-11b", 8, SERVE_PROMPT_LENS, 4),
 )
 # llama-3.2-vision's tanh gates start at 0 (the cross layers add exactly
 # 0), so both paths open them
@@ -583,12 +601,13 @@ SIM_K = dict(max_rounds=1000, warmup_rounds=250, chunk_rounds=250,
 SIM_K_BATCH = dict(max_rounds=2000, warmup_rounds=500, chunk_rounds=500,
                    target_commits=10**9)
 K_FUSED = 8
-# phase 11's cells at half of those depths (500 and 1,000 rounds): each
-# runs three to five ways, the eager oracle issuing every kernel from the
-# host, and the script must end inside its time limit on a slow host
-SIM_K11 = dict(SIM_K, max_rounds=500, warmup_rounds=125, chunk_rounds=125)
-SIM_K11_BATCH = dict(SIM_K_BATCH, max_rounds=1000, warmup_rounds=250,
-                     chunk_rounds=250)
+# phase 11's cells at about a quarter of those depths (256 and 512
+# rounds): each runs three to five ways, the eager oracle issuing every
+# kernel from the host, and the script must end inside its time limit on
+# a slow host (PERF.md, section 4, lists the depths it ran before)
+SIM_K11 = dict(SIM_K, max_rounds=256, warmup_rounds=64, chunk_rounds=64)
+SIM_K11_BATCH = dict(SIM_K_BATCH, max_rounds=512, warmup_rounds=128,
+                     chunk_rounds=128)
 # name, engine kwargs, workload kwargs, depth, the kernel on its path
 K_CELLS = (
     ("orthrus", ORTHRUS_FULL, YCSB_FULL, SIM_K11, "lock_grant"),
@@ -612,7 +631,9 @@ K_MORE = ("orthrus", "twopl_waitdie")
 # slice 8, item 9: the multi-cell sweep. Fig 13's contention axis
 # (benchmarks/figures.py:472-516): its 8 protocols at 40 lanes (the
 # message-based ones 8 CC/planner + 32 exec, window 4) x hot sets 1,024,
-# 64 and 16 on YCSB_FULL, at SIM_K's depth with no commit target
+# 64 and 16 on YCSB_FULL, at half SIM_K's depth (500 rounds: the
+# script's time limit) with no commit target
+SIM_SWEEP = dict(SIM_K, max_rounds=500, warmup_rounds=125, chunk_rounds=125)
 SWEEP_LANES = 40
 SWEEP_HOTS = (1024, 64, 16)
 SWEEP_PROTOCOLS = (
@@ -682,10 +703,11 @@ DIST_NCCL = dict(DIST_FULL, lanes_per_shard=4, keys_per_shard=10_000_000,
 # published width cut to 2 layers: serving's 8 do not fit with their
 # grads (40.9 GB + 40.9 GB). rwkv6-1.6b's steps are the phase's longest
 # (B5's plain backward loops over time, 7-10 s a kernel-path step at 512
-# tokens): 256 tokens a sequence, and 2 steps on its plain path
+# tokens): 256 tokens a sequence, and 2 steps a path. gemma3-1b 6 steps
+# a path (the script's time limit)
 TRAIN_CELLS = (
-    ("gemma3-1b", {}, dict(name="adamw"), 4, 2048, (8, 8)),
-    ("rwkv6-1.6b", {}, dict(name="adamw"), 2, 256, (3, 2)),
+    ("gemma3-1b", {}, dict(name="adamw"), 4, 2048, (6, 6)),
+    ("rwkv6-1.6b", {}, dict(name="adamw"), 2, 256, (2, 2)),
     ("mixtral-8x22b", dict(pattern_repeats=2), dict(name="adafactor"), 2,
      1024, (2, 2)),
 )
@@ -704,6 +726,15 @@ TRAIN_LOSS_TOL = 0.02
 TRAIN_GRAD_NUDGES = 2.0
 TRAIN_GRAD_POWER = 0.8
 TRAIN_GRAD_FLOOR = 0.02
+# Phase 18 (slice 14): the DTensor trainer's run_step calls a cell after
+# its step 0 (rwkv's steps take 5-8 s: its step 0 is its one step), and
+# GPipe at full width: gemma3-1b's 24 grouped layers as 4 stages of 6, 4
+# microbatches of 1 x 2,048 tokens; its stage-stacked grads against the
+# layers run in sequence, relative L2 by leaf (bf16 grads: the same ops,
+# summed over the microbatches alike)
+DT_STEPS = {"rwkv6-1.6b": 0}
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 4, 2048
+PIPE_GRAD_RTOL = 1e-2
 # the checkpoint's next step against the uninterrupted run's
 TRAIN_RESUME_TOL = 1e-3
 # each autograd Function's backward against autograd through the plain
@@ -3227,7 +3258,7 @@ def main_path_slice8_sweep(device) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     wls = {h: make_full_workload(dict(YCSB_FULL, num_hot=h))
            for h in SWEEP_HOTS}
-    cells = [(engine.EngineConfig(**eng_kw, **SIM_K), wls[h])
+    cells = [(engine.EngineConfig(**eng_kw, **SIM_SWEEP), wls[h])
              for h in SWEEP_HOTS for _name, eng_kw in SWEEP_PROTOCOLS]
     names = [f"fig13_h{h}_{name}" for h in SWEEP_HOTS
              for name, _eng_kw in SWEEP_PROTOCOLS]
@@ -3313,7 +3344,7 @@ def main_path_slice8_sweep(device) -> dict:
         target = sorted(r.commits for _i, r in base)[1] // 2
         for h in SWEEP_HOTS:
             exit_cells.append((engine.EngineConfig(
-                **eng_kw, **dict(SIM_K, target_commits=target)), wls[h]))
+                **eng_kw, **dict(SIM_SWEEP, target_commits=target)), wls[h]))
             exit_names.append(f"{proto}_h{h}_target{target}")
     exit_group = sweep_groups(exit_cells)
     exit_sizes = [exit_group.count(g) for g in exit_group]
@@ -5601,8 +5632,10 @@ def main_path_slice13(device, cells=TRAIN_CELLS) -> dict:
     the kernel path's step 0 profiled (its device time, the busy share
     against the median step, the plain backwards' shares); the launches
     of B3, B4 and B5 over every path are returned (and checked against
-    the layers). Then the Functions at real shapes (``train_vjp_checks``),
-    not counted."""
+    the layers), with each cell's kernel-path step-0 loss, watched grads,
+    grad bounds and median step ms under "step0" (phase 18 holds its
+    DTensor trainer to them). Then the Functions at real shapes
+    (``train_vjp_checks``), not counted."""
     import dataclasses
     import gc
     import shutil
@@ -5628,6 +5661,7 @@ def main_path_slice13(device, cells=TRAIN_CELLS) -> dict:
     ops = kernel_ops()
     want = {"flash_attention": 0, "rwkv6_scan": 0, "moe_dispatch": 0}
     rows = []
+    step0_refs = {}
     reset_launches()
     for arch, cut, opt_kw, B, S, steps_on in cells:
         cfg = dataclasses.replace(get_config(arch), **cut)
@@ -5719,6 +5753,9 @@ def main_path_slice13(device, cells=TRAIN_CELLS) -> dict:
                      f" s of it (busy share {prof['busy']:.4f})" if prof
                      else "")
                   + f"; peak card memory {peak} B; {power}")
+            if impl == "auto":
+                step0_refs[arch] = dict(loss0=losses[0], watched=watched,
+                                        step_ms=step_s * 1e3)
             res[impl] = dict(loss0=losses[0], watched=watched, nudge=nudge,
                              step_ms=step_s * 1e3, tokens_s=B * S / step_s,
                              peak=peak, prof=prof, last=losses[-1])
@@ -5786,7 +5823,309 @@ def main_path_slice13(device, cells=TRAIN_CELLS) -> dict:
         raise AssertionError(f"train launches {got} != {want}")
     print("train summary: " + json.dumps(rows))
     train_vjp_checks(device)
-    return got
+    for row in rows:
+        step0_refs[row["arch"]]["bounds"] = row["grad_bounds"]
+    return dict(got, step0=step0_refs)
+
+
+def dtensor_trainer_cells(device, step0) -> dict:
+    """(a) Phase 17's training cells through ``build_trainer`` on a
+    ``DeviceMesh`` over NCCL at world size 1 (data 1, model 1): the params
+    and optimizer state are DTensors, the sharding context is live, B3,
+    B4 and B5 launch through ``sharding.ctx.local_call``. Step 0's loss
+    and watched grads (the train step's own parts, under the context) are
+    held to phase 17's trainer without a mesh (``step0``): bit-equal, or
+    within phase 17's bound of each kind, and its update applied, all
+    timed as one step (the first DTensor call). Then DT_STEPS more steps
+    through ``run_step``; the last one's ms is the DTensor step's.
+    Returns the launches and {arch: (DTensor ms, phase 17 ms)}."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.train import build_trainer, token_pipeline
+    from repro_torch.optim import OptConfig, opt_update
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding import policies as SH
+    from repro_torch.train.train_step import TrainConfig, loss_and_grads
+
+    store = ROOT / "build" / "train_nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    ops = kernel_ops()
+    reset_launches()
+    ms = {}
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh_for(None, data=1, model=1)
+        for arch, cut, opt_kw, B, S, _steps in TRAIN_CELLS:
+            cfg = dataclasses.replace(get_config(arch), **cut)
+            ocfg = OptConfig(lr=TRAIN_LR, **opt_kw)
+            tcfg = TrainConfig(loss_chunk=0, opt=ocfg)
+            _c, init, run_step, _d = build_trainer(
+                arch, mesh, batch=B, seq=S, mcfg=cfg, device=device,
+                opt=ocfg)
+            state = init()
+            leaves = torch.utils._pytree.tree_leaves(state)
+            if not all(isinstance(t, DTensor) for t in leaves):
+                raise AssertionError(f"dtensor {arch}: a plain leaf")
+            pipe = token_pipeline(cfg, mesh, B, S)
+            rules = SH.rules_for(cfg, "train", B, mesh)
+            b0 = {k: DTensor.from_local(torch.from_numpy(v).to(device),
+                                        mesh.device_mesh,
+                                        [Replicate(), Replicate()])
+                  for k, v in pipe.batch(0).items()}
+            t0 = time.perf_counter()
+            with implicit_replication(), ctx.use(mesh, rules):
+                loss, grads = loss_and_grads(cfg, tcfg, state["params"], b0)
+                watched = watched_grads(torch.utils._pytree.tree_map(
+                    lambda g: g.to_local(), grads))
+                new = opt_update(ocfg, grads, state["opt"], state["params"])
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            loss = float(loss.full_tensor())
+            state = dict(zip(("params", "opt"), new))
+            del grads, new
+            ref = step0[arch]
+            errs = grad_gaps(watched, ref["watched"])
+            worst = max(errs.values())
+            kinds = {}
+            for (kind, name), e in errs.items():
+                kinds[kind] = max(kinds.get(kind, 0.0), e)
+            bit = loss == ref["loss0"] and worst == 0.0
+            print(f"dtensor {arch}: step 0 under the mesh (loss and grads "
+                  f"in {first:.3f} s, the first DTensor call) loss {loss} "
+                  f"against phase 17's {ref['loss0']}; watched grads "
+                  f"||dtensor - phase 17|| / ||phase 17|| by kind "
+                  + json.dumps(kinds)
+                  + (": bit-equal" if bit else
+                     f"; phase 17's bounds {json.dumps({k: v[0] for k, v in ref['bounds'].items()})}"))
+            if not bit:
+                for kind, e in kinds.items():
+                    if not e <= ref["bounds"][kind][0]:
+                        raise AssertionError(f"dtensor {arch}: {kind} grads "
+                                             f"differ by {e}")
+                if not abs(loss - ref["loss0"]) <= TRAIN_LOSS_TOL:
+                    raise AssertionError(f"dtensor {arch}: loss {loss}")
+            times = [first]
+            for step in range(1, 1 + DT_STEPS.get(arch, 1)):
+                t0 = time.perf_counter()
+                state, m = run_step(state, pipe.batch(step))
+                float(m["loss"])
+                times.append(time.perf_counter() - t0)
+            step_ms = times[-1]
+            ms[arch] = (step_ms * 1e3, ref["step_ms"])
+            print(f"dtensor {arch}: step s {times} (step 0 the train step's "
+                  f"parts, the first DTensor call; then run_step); DTensor "
+                  f"step {step_ms * 1e3:.3f} ms (the last) against phase "
+                  f"17's median "
+                  f"{ref['step_ms']:.3f} ms ({step_ms * 1e3 / ref['step_ms']:.3f}"
+                  f"x); peak card memory {torch.cuda.max_memory_allocated()} B")
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    finally:
+        dist.destroy_process_group()
+    got = {k: ops[k].launches for k in
+           ("flash_attention", "rwkv6_scan", "moe_dispatch")}
+    print(f"dtensor launches: {got}")
+    return dict(got, ms=ms)
+
+
+def gpipe_full_width(device) -> dict:
+    """(b) GPipe in the one-device form at full width: gemma3-1b's 24
+    grouped layers (its 4 repeats of [5 SWA-512 + 1 global]) as
+    PIPE_STAGES stages of 6, PIPE_MICRO microbatches of 1 x PIPE_SEQ
+    tokens embedded from the pipeline's batch, bf16, kernel path, forward
+    and backward; its outputs bit-equal to the same layers run one
+    microbatch at a time, its stage-stacked param grads within
+    PIPE_GRAD_RTOL (relative L2, by leaf) of theirs. B4 launches
+    layers x microbatches a forward pass."""
+    import dataclasses
+    import gc
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import one_device_mesh
+    from repro_torch.models import transformer as TF
+    from repro_torch.runtime.pipeline import pipeline_forward
+
+    ops = kernel_ops()
+    cfg = get_config("gemma3-1b")
+    P = len(cfg.pattern)
+    params = TF.init_params(cfg, SEED, device)
+    layers = params["layers"][:P * PIPE_STAGES]
+    specs = TF.layer_specs(cfg)[:P]
+    toks = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    global_batch=PIPE_MICRO,
+                                    seq_len=PIPE_SEQ)).batch(0)["tokens"]
+    with torch.no_grad():
+        x = params["tok_embed"][torch.from_numpy(toks).to(device)]
+    x = x.reshape(PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model)
+    del params
+    stacked = [pytree.tree_map(lambda *ts: torch.stack(ts).requires_grad_(),
+                               *[layers[s * P + i] for s in range(PIPE_STAGES)])
+               for i in range(P)]
+
+    def stage(p, h):
+        for i in range(P):
+            h, _a, _c = TF.apply_layer(h, p[i], cfg, specs[i])
+        return h
+
+    mesh = one_device_mesh((PIPE_STAGES,), ("stage",), device)
+    fa = ops["flash_attention"]
+    before = fa.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = pipeline_forward(stage, stacked, x, mesh=mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd_launches = fa.launches - before
+    outs.float().square().mean().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    outs = outs.detach()
+    pipe_grads = [pytree.tree_map(lambda v: v.grad, st) for st in stacked]
+    del stacked
+    gc.collect()
+    ref_layers = [pytree.tree_map(lambda v: v.detach().requires_grad_(), lp)
+                  for lp in layers]
+    del layers
+    t3 = time.perf_counter()
+    want = []
+    for m in range(PIPE_MICRO):
+        h = x[m]
+        for j, lp in enumerate(ref_layers):
+            h, _a, _c = TF.apply_layer(h, lp, cfg, specs[j % P])
+        want.append(h)
+    want = torch.stack(want)
+    want.float().square().mean().backward()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    equal = torch.equal(outs, want.detach())
+    worst = 0.0
+    for i in range(P):
+        for s in range(PIPE_STAGES):
+            for g, r in zip(pytree.tree_leaves(pipe_grads[i]),
+                            pytree.tree_leaves(ref_layers[s * P + i])):
+                e = float(torch.linalg.norm(g[s].float() - r.grad.float())
+                          / torch.linalg.norm(r.grad.float()))
+                worst = max(worst, e)
+    print(f"gpipe gemma3-1b: {PIPE_STAGES} stages x {P} layers, "
+          f"{PIPE_MICRO} microbatches of 1 x {PIPE_SEQ}, bf16, one-device "
+          f"form: forward {(t1 - t0) * 1e3:.3f} ms, backward "
+          f"{(t2 - t1) * 1e3:.3f} ms; the layers in sequence forward and "
+          f"backward {(t4 - t3) * 1e3:.3f} ms; outputs bit-equal: {equal}; "
+          f"B4 launches in the pipeline's forward {fwd_launches} (expected "
+          f"{P * PIPE_STAGES * PIPE_MICRO}); param grads, largest relative "
+          f"L2 gap {worst:.3e} (tolerance {PIPE_GRAD_RTOL}); peak card "
+          f"memory {torch.cuda.max_memory_allocated()} B")
+    if not equal:
+        raise AssertionError("gpipe: outputs differ from the layers run in "
+                             "sequence")
+    if fwd_launches != P * PIPE_STAGES * PIPE_MICRO:
+        raise AssertionError(f"gpipe: B4 {fwd_launches} launches")
+    if not worst <= PIPE_GRAD_RTOL:
+        raise AssertionError(f"gpipe: grads differ by {worst}")
+    del pipe_grads, ref_layers, want, outs, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": fwd_launches}
+
+
+def train_rooflines(ms) -> None:
+    """(c) The roofline of phase 17's cells on one card: each step traced
+    on ``meta`` (no allocation) under ``launch.roofline.DeviceCounter``
+    at 1 and 2 pattern repeats and counted over all of them
+    (``launch.roofline.over_repeats``), its compute and memory lower
+    bounds at the H100's peaks printed
+    beside the measured ms a step (phase 17's, and the DTensor trainer's
+    of (a)) and their ratio."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import (
+        DeviceCounter,
+        analyze_counts,
+        local_bytes,
+        over_repeats,
+    )
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    def trace(cfg, tcfg, B, S):
+        params = M.abstract_params(cfg)
+        opt = init_opt_state(tcfg.opt, params)
+        batch = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+                 for k in ("tokens", "targets")}
+        counter = DeviceCounter()
+        with counter:
+            out = make_train_step(cfg, tcfg)(params, opt, batch)
+        return {**counter.counts(), "param_bytes": local_bytes(params),
+                "arg_bytes": local_bytes((params, opt, batch)),
+                "out_bytes": local_bytes(out)}
+
+    for arch, cut, opt_kw, B, S, _steps in TRAIN_CELLS:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        tcfg = TrainConfig(loss_chunk=0,
+                           opt=OptConfig(lr=TRAIN_LR, **opt_kw))
+        t0 = time.perf_counter()
+        c = over_repeats(lambda r: trace(dataclasses.replace(
+            cfg, pattern_repeats=r), tcfg, B, S), cfg.pattern_repeats)
+        counter = DeviceCounter()
+        counter.add(c)
+        meta = dict(arch=arch, kind="train", seq_len=S, global_batch=B,
+                    params=cfg.param_count(),
+                    active_params=cfg.active_param_count())
+        a = analyze_counts(counter, meta, chips=1,
+                           param_bytes=int(c["param_bytes"]),
+                           arg_bytes=int(c["arg_bytes"]),
+                           out_bytes=int(c["out_bytes"]))
+        bound = max(a["compute_seconds"], a["memory_seconds"]) * 1e3
+        dt_ms, p17_ms = ms[arch]
+        print(f"roofline {arch} ({B} x {S}, traced on meta in "
+              f"{time.perf_counter() - t0:.3f} s): {a['flops_per_device']:.4e}"
+              f" FLOPs a step (model 6ND {a['model_flops']:.4e}), compute "
+              f"bound {a['compute_seconds'] * 1e3:.3f} ms at 989 TFLOP/s; "
+              f"{a['mem_traffic_per_device']:.4e} B of HBM traffic, memory "
+              f"bound {a['memory_seconds'] * 1e3:.3f} ms at 3.35 TB/s; "
+              f"measured {p17_ms:.3f} ms a step (phase 17), "
+              f"{p17_ms / bound:.3f}x the larger bound; the DTensor "
+              f"trainer's {dt_ms:.3f} ms, {dt_ms / bound:.3f}x")
+
+
+def main_path_slice14(device, step0) -> dict:
+    """Phase 18: (a) the DTensor trainer on a one-card NCCL mesh
+    (``dtensor_trainer_cells``), (b) GPipe at full width
+    (``gpipe_full_width``), (c) the roofline of phase 17's cells
+    (``train_rooflines``). Returns the kernels' launches."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = dtensor_trainer_cells(device, step0)
+    reset_launches()
+    b = gpipe_full_width(device)
+    train_rooflines(a["ms"])
+    return {"flash_attention": a["flash_attention"] + b["flash_attention"],
+            "rwkv6_scan": a["rwkv6_scan"],
+            "moe_dispatch": a["moe_dispatch"]}
 
 
 def gpu_name_and_power() -> str:
@@ -5924,6 +6263,12 @@ def main() -> int:
     rows[2]["launches"] += slice13["flash_attention"]
     rows[3]["launches"] += slice13["rwkv6_scan"]
     rows[4]["launches"] += slice13["moe_dispatch"]
+    slice14 = phase("main path, slice 14: the DTensor trainer, GPipe and "
+                    "the roofline", main_path_slice14, device,
+                    slice13["step0"])
+    rows[2]["launches"] += slice14["flash_attention"]
+    rows[3]["launches"] += slice14["rwkv6_scan"]
+    rows[4]["launches"] += slice14["moe_dispatch"]
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

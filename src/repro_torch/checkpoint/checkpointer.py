@@ -15,7 +15,12 @@ Guarantees:
     happens on a worker thread so training overlaps I/O;
   * restore onto any device (``device=``): leaves are loaded on the host
     and placed there;
-  * retention — keep the newest K checkpoints.
+  * retention — keep the newest K checkpoints;
+  * sharded state — a DTensor leaf is gathered whole (every rank of its
+    mesh takes part) and written as one array, so the files are the same
+    whatever the mesh; only rank 0 of the process group writes.
+    Restoring into a target tree of DTensors places each leaf as its
+    target is placed.
 
 Leaves are numbered in ``torch.utils._pytree``'s order (a dict's
 insertion order; JAX sorts dict keys, so a tree whose dicts are built in
@@ -36,12 +41,17 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
+
+from repro_torch.sharding.ctx import is_dtensor
 
 _BF16 = "bfloat16"
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
@@ -68,10 +78,14 @@ def _to_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 def save_checkpoint(directory: str, step: int, tree, *, keep: int = 3,
                     blocking: bool = True):
-    """Save a tree of tensors. Returns a join() callable when async."""
-    os.makedirs(directory, exist_ok=True)
+    """Save a tree of tensors. Returns a join() callable when async. In a
+    process group every rank gathers the leaves (a DTensor's gather is a
+    collective that every rank joins) and rank 0 alone writes them."""
     leaves, spec = pytree.tree_flatten(tree)
     host_leaves = [_to_numpy(x) for x in leaves]  # device -> host now
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return lambda: None
+    os.makedirs(directory, exist_ok=True)
 
     def _write():
         tmp = tempfile.mkdtemp(prefix=f"step_{step}.tmp_", dir=directory)
@@ -134,9 +148,9 @@ def latest_step(directory: str) -> int | None:
 
 def restore_checkpoint(directory: str, step: int, target_tree, device=None):
     """Restore into the structure of ``target_tree`` (its leaves give the
-    structure only). Each leaf is placed on ``device``, or stays on the
-    host where it is None: a restore onto another device than the one
-    that saved is the same call."""
+    structure, and a DTensor leaf its placements). Each leaf is placed on
+    ``device``, or stays on the host where it is None: a restore onto
+    another device than the one that saved is the same call."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -154,7 +168,19 @@ def restore_checkpoint(directory: str, step: int, target_tree, device=None):
                 f"crc {crc:#x} != {meta['crc32']:#x}")
         t = _to_tensor(arr, meta["dtype"])
         out.append(t if device is None else t.to(device))
+    out = [_placed_as(t, like) for t, like in zip(out, leaves)]
     return pytree.tree_unflatten(out, spec)
+
+
+def _placed_as(t, like):
+    """``t`` as a DTensor placed as ``like`` where that is one (each rank
+    keeps its shard of the same whole array)."""
+    if not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.to(like.device), like.device_mesh,
+                             like.placements, src_data_rank=None)
 
 
 class Checkpointer:

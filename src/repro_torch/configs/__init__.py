@@ -7,8 +7,11 @@ All ten archs of the JAX package are carried.
 
 from repro_torch.configs.base import (
     ARCHS,
+    SHAPES,
     LayerSpec,
     ModelConfig,
+    ShapeSpec,
+    applicable_shapes,
     get_config,
     get_smoke_config,
     list_archs,
@@ -16,8 +19,11 @@ from repro_torch.configs.base import (
 
 __all__ = [
     "ARCHS",
+    "SHAPES",
     "LayerSpec",
     "ModelConfig",
+    "ShapeSpec",
+    "applicable_shapes",
     "get_config",
     "get_smoke_config",
     "list_archs",

@@ -4,7 +4,8 @@ A model is a repeating *layer pattern* (the smallest heterogeneous unit,
 e.g. gemma3's [5x local, 1x global]) run ``pattern_repeats`` times, plus
 a ``tail``. The dataclasses are field-for-field those of the JAX
 package, so a test can build one from the other. The registry lists all
-ten architectures, and each resolves.
+ten architectures, and each resolves. ``SHAPES`` are the dry run's input
+shapes, ``applicable_shapes`` those an arch takes.
 """
 
 from __future__ import annotations
@@ -179,6 +180,26 @@ ARCHS = (
     "llama4-maverick-400b-a17b",
 )
 
+# ---------------------------------------------------------------------------
+# Input shapes (assigned per-arch shape set)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
 # each architecture's config module
 _MODULES = {
     "qwen3-32b": "qwen3_32b",
@@ -210,3 +231,14 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _load(name).SMOKE
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """Shape cells that apply to this arch (long_500k needs sub-quadratic;
+    pure full-attention archs skip it per the assignment)."""
+    out = []
+    for s in SHAPES.values():
+        if s.name == "long_500k" and not cfg.subquadratic:
+            continue
+        out.append(s.name)
+    return out

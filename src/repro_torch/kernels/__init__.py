@@ -22,7 +22,9 @@ Each kernel directory has:
 A wrapper launches its kernel for a CUDA tensor and raises if it cannot;
 it runs the plain version only for a tensor that lies on the CPU. It
 launches under its tensors' device (``device_guard``), so tensors on a
-card that is not the current one work too.
+card that is not the current one work too. It refuses a DTensor
+(``reject_dtensors``): a DTensor reaches a kernel through
+``sharding.ctx.local_call``, as its local shard.
 """
 
 from __future__ import annotations
@@ -45,6 +47,21 @@ def device_guard(dev: torch.device):
     if dev.index == torch.cuda.current_device():
         return _SAME_DEVICE
     return torch.cuda.device(dev)
+
+
+def reject_dtensors(op: str, **tensors) -> None:
+    """Raise a TypeError where one of ``tensors`` is a DTensor. Its
+    ``data_ptr`` is its local shard's, so a kernel launched on one reads
+    the wrong extents (an illegal address on the card), and its plain
+    version computes on the whole tensor what the card's kernel would
+    not."""
+    from torch.distributed.tensor import DTensor
+
+    for name, t in tensors.items():
+        if isinstance(t, DTensor):
+            raise TypeError(f"{op}: {name} is a DTensor; a kernel takes "
+                            f"plain tensors (call it on the local shards "
+                            f"through sharding.ctx.local_call)")
 
 
 def use_kernel(kernel_impl: str, device: torch.device | str) -> bool:

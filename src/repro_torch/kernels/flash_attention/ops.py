@@ -25,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, device_guard
+from repro_torch.kernels import _build, device_guard, reject_dtensors
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -74,6 +74,7 @@ def _simt_library() -> ctypes.CDLL:
 
 def _check(q, k, v, kind, window):
     """Raise on arguments the kernels do not take; (B, S, T, Hq, Hkv, d)."""
+    reject_dtensors("flash_attention", q=q, k=k, v=v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, S|T, H, d]")
     B, S, HQ, D = q.shape
@@ -174,5 +175,6 @@ def flash_attention(q, k, v, *, kind="full", window=0):
     """Attention over the model's layout: the kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if q.device.type == "cpu":
+        reject_dtensors("flash_attention", q=q, k=k, v=v)
         return flash_attention_ref(q, k, v, kind=kind, window=window)
     return flash_attention_cuda(q, k, v, kind=kind, window=window)

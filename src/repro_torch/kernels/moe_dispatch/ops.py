@@ -29,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, device_guard
+from repro_torch.kernels import _build, device_guard, reject_dtensors
 from repro_torch.kernels.moe_dispatch.ref import (
     dispatch_slots_ref,
     moe_dispatch_plan_grouped_ref,
@@ -70,6 +70,7 @@ def _library() -> ctypes.CDLL:
 
 def _check(experts_sorted, capacity, num_experts):
     e = experts_sorted
+    reject_dtensors("moe_dispatch", experts=e)
     if e.dtype != torch.int32:
         raise TypeError(f"moe_dispatch: experts are {e.dtype}, want int32")
     if e.dim() != 1:
@@ -122,6 +123,7 @@ def dispatch_positions(experts_sorted, capacity, num_experts):
 
 def _check_plan(router_probs, top_k, capacity):
     p = router_probs
+    reject_dtensors("moe_dispatch_plan", probabilities=p)
     if p.dtype != torch.float32:
         raise TypeError(f"moe_dispatch_plan: probabilities are {p.dtype}, "
                         f"want float32")

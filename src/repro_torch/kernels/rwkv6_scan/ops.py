@@ -29,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build, device_guard
+from repro_torch.kernels import _build, device_guard, reject_dtensors
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -84,6 +84,8 @@ def _chain_library() -> ctypes.CDLL:
 
 def _check(r, k, v, w, u, state0, state_out):
     """Raise on arguments the kernel does not take; returns (B, H, S, hd)."""
+    reject_dtensors("rwkv6_scan", r=r, k=k, v=v, w=w, u=u, state0=state0,
+                    state_out=state_out)
     if r.dim() != 4:
         raise ValueError(f"rwkv6_scan: r must be [B, H, S, hd], got "
                          f"{tuple(r.shape)}")

@@ -3,20 +3,27 @@
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 20 --batch 8 --seq 64 --ckpt-dir <dir>
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b  # GPU
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --smoke --device cpu --data 2 --model 2  # gloo, 4 ranks
 
 Wires together: config -> mesh -> params and optimizer state on the
 device -> deterministic data pipeline -> train step (per-layer remat,
-microbatching, the data-parallel reduction) -> async checkpointing,
-resumed from the newest committed step of ``--ckpt-dir``.
+microbatching) -> async checkpointing, resumed from the newest committed
+step of ``--ckpt-dir``.
 
 On a one-device mesh (``--data``/``--model`` axes as tensor dimensions
 of one device) the whole global batch trains on ``--device``. Under an
 initialised process group (``torchrun``: ``WORLD_SIZE`` > 1; NCCL on
-cards, gloo on the CPU) the mesh is a ``DeviceMesh`` and each rank
-trains its own rows of the global batch: the gradients are averaged over
-``data`` by an ``all_reduce`` and over ``pod`` by ``compressed_psum_pod``
-(int8 with error feedback); rank 0 writes the checkpoints. A ``model``
-axis above 1 (tensor parallelism) is not ported yet.
+cards, gloo on the CPU) the mesh is a ``DeviceMesh`` and the trainer is
+the JAX package's sharded one in DTensor form: params and optimizer
+state are DTensors placed by the sharding rules (``embed`` over
+``data``, heads, MLP and vocab over ``model``, experts over ``model``),
+each rank's rows of the global batch make one DTensor sharded over
+``pod`` x ``data``, and the step runs under the sharding context
+(``sharding.ctx``), so the models' constraints take effect and the
+kernels run on local shards. DTensor's backward gives the gradients
+already reduced over the mesh. Every rank joins a checkpoint's gather;
+rank 0 writes it.
 
 Weights are random, from seed 0 as the JAX launcher's. For
 llama-3.2-vision, llama4-maverick and whisper the stub frontends'
@@ -40,12 +47,11 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.launch.mesh import Mesh, make_mesh_for
 from repro_torch.models import model as M
-from repro_torch.optim import OptConfig, init_opt_state
+from repro_torch.models import param_axes
+from repro_torch.optim import OptConfig, init_opt_state, opt_state_axes
+from repro_torch.sharding import ctx
+from repro_torch.sharding import policies as SH
 from repro_torch.train import TrainConfig, make_train_step
-from repro_torch.train.grad_compress import (
-    compressed_psum_pod,
-    init_error_state,
-)
 
 
 def data_shard(mesh: Mesh) -> tuple[int, int]:
@@ -70,55 +76,19 @@ def token_pipeline(cfg, mesh: Mesh, batch: int, seq: int,
                                     seed=seed, num_hosts=n, host_index=i))
 
 
-class DataParallelReduce:
-    """``grad_reduce`` over a process mesh: the mean over ``data`` by an
-    ``all_reduce``, then over ``pod`` by ``compressed_psum_pod``, whose
-    error feedback this object carries from step to step. The loss is
-    averaged alike (uncompressed)."""
-
-    def __init__(self, mesh: Mesh):
-        self.mesh = mesh
-        self.err = None
-
-    def __call__(self, grads, loss):
-        import torch.distributed as dist
-
-        dm = self.mesh.device_mesh
-        for axis in ("data", "pod"):
-            n = self.mesh.shape.get(axis, 1)
-            if n == 1:
-                continue
-            group = dm.get_group(axis)
-            if axis == "data":
-                for g in pytree.tree_leaves(grads):
-                    dist.all_reduce(g, group=group)
-                    g.div_(n)
-            else:
-                if self.err is None:
-                    self.err = init_error_state(grads)
-                grads, self.err = compressed_psum_pod(grads, self.err,
-                                                      self.mesh)
-            loss = loss.clone()
-            dist.all_reduce(loss, group=group)
-            loss = loss / n
-        return grads, loss
-
-
 def build_trainer(arch, mesh: Mesh, *, smoke=True, batch=8, seq=64,
                   microbatches=1, lr=1e-3, mcfg=None, device=None,
                   kernel_impl="auto", opt: OptConfig | None = None):
     """Returns (cfg, init, run_step, device): ``init()`` the fresh state
     {"params", "opt"} on ``device``; ``run_step(state, batch)`` one train
     step on a pipeline batch (numpy ``tokens``/``targets``, this
-    process's rows), returning (state, {"loss", "grad_norm"}).
+    process's rows), returning (state, {"loss", "grad_norm"}) with the
+    metrics as plain tensors.
 
+    Under a process mesh the state is DTensors (the module's docstring).
     ``device`` defaults to the mesh's (one device, or this rank's), and
     to "cuda" for an abstract mesh. ``opt`` defaults to AdamW at ``lr``,
     as the JAX launcher's; the loss is taken whole (``loss_chunk`` 0)."""
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"training under a model axis of {mesh.shape['model']}: tensor "
-            f"parallelism comes with ROADMAP Queue 1, item 13b")
     cfg = mcfg or (get_smoke_config(arch) if smoke else get_config(arch))
     if device is None:
         device = mesh.device if mesh.devices else "cuda"
@@ -129,22 +99,55 @@ def build_trainer(arch, mesh: Mesh, *, smoke=True, batch=8, seq=64,
     tcfg = TrainConfig(microbatches=microbatches, loss_chunk=0,
                        opt=opt or OptConfig(name="adamw", lr=lr))
     extras = M.random_extras(cfg, batch // n_shards, 0, device)
+    step_impl = make_train_step(cfg, tcfg, kernel_impl=kernel_impl)
+    sharded = mesh.form == "process"
+    if sharded:
+        rules = SH.rules_for(cfg, "train", batch, mesh)
+        abs_params = M.abstract_params(cfg)
+        p_shard = SH.params_sharding(cfg, mesh, rules, abs_params)
+        o_shard = SH.tree_sharding(
+            opt_state_axes(tcfg.opt, param_axes(cfg), abs_params),
+            init_opt_state(tcfg.opt, abs_params), mesh, rules)
 
     def init():
         params = M.init_params(cfg, 0, device)
-        return {"params": params, "opt": init_opt_state(tcfg.opt, params)}
+        state = {"params": params, "opt": init_opt_state(tcfg.opt, params)}
+        if sharded:
+            state = {"params": SH.distribute(state["params"], p_shard),
+                     "opt": SH.distribute(state["opt"], o_shard)}
+        return state
 
-    step_impl = make_train_step(
-        cfg, tcfg, kernel_impl=kernel_impl,
-        grad_reduce=DataParallelReduce(mesh) if n_shards > 1 else None)
+    def global_batch(b):
+        """This rank's rows as one DTensor batch over (pod, data)."""
+        from torch.distributed.tensor import DTensor
+
+        def leaf(t):
+            shape = (t.shape[0] * n_shards,) + tuple(t.shape[1:])
+            sh = SH.batch_sharding(mesh, rules, {"x": (shape, t.dtype)})
+            return DTensor.from_local(t, mesh.device_mesh,
+                                      sh["x"].placements(), run_check=False)
+
+        return pytree.tree_map(leaf, b)
 
     def run_step(state, batch_):
         b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
              for k, v in batch_.items()}
         if extras:
             b["extras"] = extras
-        params, opt_state, metrics = step_impl(state["params"], state["opt"],
-                                               b)
+        if not sharded:
+            params, opt_state, metrics = step_impl(state["params"],
+                                                   state["opt"], b)
+            return {"params": params, "opt": opt_state}, metrics
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import (
+            implicit_replication,
+        )
+
+        with implicit_replication(), ctx.use(mesh, rules):
+            params, opt_state, metrics = step_impl(
+                state["params"], state["opt"], global_batch(b))
+        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                   for k, v in metrics.items()}
         return {"params": params, "opt": opt_state}, metrics
 
     return cfg, init, run_step, device
@@ -188,9 +191,7 @@ def main(argv=None) -> int:
         args.arch, mesh, smoke=args.smoke, batch=args.batch, seq=args.seq,
         microbatches=args.microbatches, lr=args.lr)
     pipe = token_pipeline(cfg, mesh, args.batch, args.seq)
-    rank0 = not multi or torch.distributed.get_rank() == 0
-    ckpt = Checkpointer(args.ckpt_dir,
-                        interval=args.ckpt_interval if rank0 else 0)
+    ckpt = Checkpointer(args.ckpt_dir, interval=args.ckpt_interval)
     state = init()
     found_step, restored = ckpt.restore_latest(state, device)
     if found_step is not None:

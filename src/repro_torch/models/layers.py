@@ -2,8 +2,9 @@
 
 The port of ``repro.models.layers``, same functions and parameter
 layouts (``wq/wk/wv [d, heads, head_dim]``, ``wo [heads, head_dim, d]``,
-MLP ``wi/wg [d, ff]``, ``wo [ff, d]``), with the sharding constraints
-dropped (one card has no mesh).
+MLP ``wi/wg [d, ff]``, ``wo [ff, d]``), and the same sharding
+constraints (``sharding.ctx.constrain``: a no-op without a context, so on
+one card).
 
 Prefill attention goes through kernel B4 (``kernels.flash_attention``,
 hand-written CUDA) where ``use_kernel(kernel_impl, device)`` says so, and
@@ -11,7 +12,9 @@ otherwise through ``_attend_blocked``, the model's plain formulation.
 Under autograd B4's backward is ``_attend_blocked``'s
 (``kernels.autograd.kernel_call``). Decode attention, cross-attention,
 the MLP, the norms and the projections are plain PyTorch, as the JAX
-package left them to XLA.
+package left them to XLA. Under a mesh (DTensor params, a sharding
+context) the attention, the projections and the MLP run on each rank's
+local shards (``sharding.ctx.local_call``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.autograd import kernel_call
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.sharding import ctx
 
 NEG_INF = -1e30
 
@@ -115,7 +119,25 @@ def mlp_axes(kind):
     return a
 
 
+def _mlp_axes_of(x):
+    return ("batch", "seq", "embed_act") if x.dim() == 3 else (
+        "tokens_act", "embed_act")
+
+
 def apply_mlp(kind, x, p):
+    """The MLP; under a mesh on local shards: its hidden units over the
+    rules' ``mlp`` axes (Megatron), the output a partial sum over them."""
+    names = ("wi", "wo") + (("wg",) if "wg" in p else ())
+    axes = {"wi": ("embed_full", "mlp"), "wo": ("mlp", "embed_full"),
+            "wg": ("embed_full", "mlp")}
+    x_axes = _mlp_axes_of(x)
+    return ctx.local_call(
+        lambda x_, *w: _mlp(kind, x_, dict(zip(names, w))),
+        (x, *[p[n] for n in names]), (x_axes, *[axes[n] for n in names]),
+        x_axes[:-1] + (None,), contracted=("mlp",))
+
+
+def _mlp(kind, x, p):
     h = x @ p["wi"]
     if kind == "swiglu":
         h = F.silu(x @ p["wg"]) * h
@@ -176,10 +198,39 @@ def attn_axes(spec: AttnSpec):
     return a
 
 
+_X_AXES = ("batch", "seq", "embed_act")
+_W_AXES = ("embed_full", "heads", "head_dim")
+_KVW_AXES = ("embed_full", "kv_heads", "head_dim")
+_O_AXES = ("batch", "seq", "heads_act", "head_dim")
+_WO_AXES = ("heads", "head_dim", "embed_full")
+
+
+def proj_heads(x, w, w_axes=_W_AXES, x_axes=_X_AXES):
+    """x [B,S,D] @ w [D,N,H] -> [B,S,N,H] (``einsum("bsd,dnh->bsnh")``).
+    Under a mesh it runs on local shards (``sharding.ctx.local_call``):
+    w gathered whole along D (the ZeRO-3 gather), its heads as the rules
+    shard them, x's rows as they are; the output is sharded as x's rows
+    and w's heads. DTensor's own einsum splits a column-sharded output
+    where N does not divide the mesh axis, which it cannot place."""
+    return ctx.local_call(
+        lambda x_, w_: torch.einsum("bsd,dnh->bsnh", x_, w_),
+        (x, w), (x_axes, w_axes), x_axes[:2] + w_axes[1:])
+
+
+def proj_out(o, w, o_axes=_O_AXES, w_axes=_WO_AXES):
+    """o [B,S,N,H] @ w [N,H,D] -> [B,S,D] (``einsum("bsnh,nhd->bsd")``),
+    under a mesh on local shards: a partial sum over the mesh axes that
+    shard the heads, which DTensor reduces."""
+    return ctx.local_call(
+        lambda o_, w_: torch.einsum("bsnh,nhd->bsd", o_, w_),
+        (o, w), (o_axes, w_axes), o_axes[:2] + (None,),
+        contracted=o_axes[2:] + w_axes[:2])
+
+
 def _qkv(x, p, spec: AttnSpec, positions):
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
+    q = proj_heads(x, p["wq"])
+    k = proj_heads(x, p["wk"], _KVW_AXES)
+    v = proj_heads(x, p["wv"], _KVW_AXES)
     if spec.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -243,33 +294,69 @@ def _attend_blocked(q, k, v, spec: AttnSpec, q_offset=0):
     return torch.cat(out, dim=1).reshape(B, S, NQ, HD)
 
 
+_Q_AXES = ("batch", "seq_full", "heads_act", "head_dim")
+_KV_AXES = ("batch", "seq_full", "kv_heads_act", "head_dim")
+
+
+def _local_kv(q, k, v, G, h0):
+    """The k/v heads that query heads h0 .. h0 + q.shape[2] - 1 read
+    (kv head h // G for query head h, G query heads a kv head), with q's
+    local heads in equal groups over them: k and v themselves where they
+    hold exactly those heads, else a slice of them, else one kv head per
+    query head."""
+    hq, hk = q.shape[2], k.shape[2]
+    if hq == hk * G:
+        return k, v
+    idx = [(h0 + h) // G for h in range(hq)]
+    n = idx[-1] - idx[0] + 1
+    if hq % n == 0 and idx == [idx[0] + h // (hq // n) for h in range(hq)]:
+        return k[:, :, idx[0]:idx[0] + n], v[:, :, idx[0]:idx[0] + n]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
 def self_attention(x, p, spec: AttnSpec, positions=None, q_offset=0,
                    kernel_impl="auto"):
     """Prefill self-attention. x: [B,S,D] -> ([B,S,D], (k, v)).
 
     ``kernel_impl`` picks kernel B4 or ``_attend_blocked``
     (``repro_torch.kernels.use_kernel``); under autograd B4's gradient is
-    ``_attend_blocked``'s.
+    ``_attend_blocked``'s. Under a mesh q, k and v are constrained to the
+    rules' heads (the JAX package's Megatron boundary) and either one
+    runs on this rank's local heads: where the query heads shard and the
+    kv heads do not divide the mesh axis, each rank reads the kv heads
+    of its own query heads.
     """
     B, S, _ = x.shape
     if positions is None:
         positions = q_offset + torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(x, p, spec, positions)
-    if use_kernel(kernel_impl, x.device):
-        if q_offset:
-            raise ValueError("flash_attention takes queries from position 0")
-        # "bidir" is causal in the model's mask (``_block_mask``), which is
-        # B4's "full"
-        kind = "full" if spec.kind == "bidir" else spec.kind
-        out = kernel_call(
-            lambda q_, k_, v_: flash_attention(q_, k_, v_, kind=kind,
-                                               window=spec.window),
-            lambda q_, k_, v_: _attend_blocked(q_, k_, v_, spec),
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            name="flash_attention")
-    else:
-        out = _attend_blocked(q, k, v, spec, q_offset=q_offset)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), (k, v)
+    q = ctx.constrain(q, _Q_AXES)
+    k = ctx.constrain(k, _KV_AXES)
+    v = ctx.constrain(v, _KV_AXES)
+    kernel = use_kernel(kernel_impl, x.device)
+    if kernel and q_offset:
+        raise ValueError("flash_attention takes queries from position 0")
+    # "bidir" is causal in the model's mask (``_block_mask``), which is
+    # B4's "full"
+    kind = "full" if spec.kind == "bidir" else spec.kind
+    shard = ctx.shard_index(q, _Q_AXES, 2)
+
+    def attend(q_, k_, v_):
+        k_, v_ = _local_kv(q_, k_, v_, spec.num_heads // spec.num_kv_heads,
+                           shard * q_.shape[2])
+        if kernel:
+            return kernel_call(
+                lambda a, b, c: flash_attention(a, b, c, kind=kind,
+                                                window=spec.window),
+                lambda a, b, c: _attend_blocked(a, b, c, spec),
+                q_.contiguous(), k_.contiguous(), v_.contiguous(),
+                name="flash_attention")
+        return _attend_blocked(q_, k_, v_, spec, q_offset=q_offset)
+
+    out = ctx.local_call(attend, (q, k, v), (_Q_AXES, _KV_AXES, _KV_AXES),
+                         _Q_AXES)
+    return proj_out(out, p["wo"]), (k, v)
 
 
 def decode_attention(x, p, spec: AttnSpec, cache_k, cache_v, pos,
@@ -288,16 +375,25 @@ def decode_attention(x, p, spec: AttnSpec, cache_k, cache_v, pos,
     q, k, v = _qkv(x, p, spec, positions)
     slot = positions[:, 0] % S if ring else torch.clamp(positions[:, 0], max=S - 1)
     bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, slot] = k[:, 0]
-    cache_v[bidx, slot] = v[:, 0]
+    if ctx.is_dtensor(cache_k):
+        # a DTensor cache (its rows may be sharded) takes the write as a
+        # masked select, the same values: DTensor cannot scatter into it
+        at = (torch.arange(S, device=x.device)[None, :] == slot[:, None])
+        cache_k.copy_(torch.where(at[..., None, None], k, cache_k))
+        cache_v.copy_(torch.where(at[..., None, None], v, cache_v))
+    else:
+        cache_k[bidx, slot] = k[:, 0]
+        cache_v[bidx, slot] = v[:, 0]
 
     NQ, HD = spec.num_heads, spec.head_dim
     NKV = spec.num_kv_heads
     G = NQ // NKV
-    qg = q.reshape(B, 1, NKV, G, HD)
-    s = torch.einsum("bqkgh,btkh->bkgqt", qg, cache_k).float() / math.sqrt(HD)
     if ring:
-        cache_kpos[bidx, slot] = positions[:, 0].to(cache_kpos.dtype)
+        if ctx.is_dtensor(cache_kpos):
+            cache_kpos.copy_(torch.where(at, positions[:, :1].to(
+                cache_kpos.dtype), cache_kpos))
+        else:
+            cache_kpos[bidx, slot] = positions[:, 0].to(cache_kpos.dtype)
         valid = cache_kpos >= 0
         if spec.kind == "swa" and spec.window:
             valid &= positions[:, :1] - cache_kpos < spec.window
@@ -314,39 +410,76 @@ def decode_attention(x, p, spec: AttnSpec, cache_k, cache_v, pos,
             valid &= (torch.div(k_abs, spec.window, rounding_mode="floor")
                       == torch.div(positions[:, :1], spec.window,
                                    rounding_mode="floor"))
-    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
-    pr = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgqt,btkh->bqkgh", pr, cache_v).reshape(B, 1, NQ, HD)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+
+    def attend(q_, k_, v_, valid_):
+        b, hq = q_.shape[0], q_.shape[2]
+        k_, v_ = _local_kv(q_, k_, v_, G, shard * hq)
+        qg = q_.reshape(b, 1, k_.shape[2], hq // k_.shape[2], HD)
+        s = torch.einsum("bqkgh,btkh->bkgqt", qg, k_).float() / math.sqrt(HD)
+        s = torch.where(valid_[:, None, None, None, :], s, NEG_INF)
+        pr = torch.softmax(s, dim=-1).to(x.dtype)
+        return torch.einsum("bkgqt,btkh->bqkgh", pr, v_).reshape(b, 1, hq,
+                                                                 HD)
+
+    # under a mesh on each rank's heads, where the cache's rows are whole
+    # on every rank; a cache sharded along its rows (``cache_seq``) runs
+    # as DTensor ops, the softmax reduced over the shards, its one-token
+    # q gathered over the heads first (DTensor cannot split heads sharded
+    # finer than the kv heads into groups)
+    c_axes = ("batch", "cache_seq", "kv_heads_act", "head_dim")
+    cp = ctx.placements(cache_k, c_axes)
+    if cp is None or not any(pl.is_shard(1) for pl in cp):
+        shard = ctx.shard_index(q, _DQ_AXES, 2)
+        out = ctx.local_call(attend, (q, cache_k, cache_v, valid),
+                             (_DQ_AXES, c_axes, c_axes,
+                              ("batch", "cache_seq")), _DQ_AXES)
+    else:
+        shard = 0
+        out = attend(ctx.constrain(q, ("batch", "seq", None, "head_dim")),
+                     cache_k, cache_v, valid)
+    return proj_out(out, p["wo"])
+
+
+_DQ_AXES = ("batch", None, "heads_act", "head_dim")
 
 
 def _attend_memory(q, k, v, dtype):
-    """Unmasked attention of q [B,S,Nq,hd] over a memory k/v [B,T,Nkv,hd]."""
-    B, S, NQ, HD = q.shape
-    NKV = k.shape[2]
-    qg = q.reshape(B, S, NKV, NQ // NKV, HD)
-    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k).float() / math.sqrt(HD)
-    pr = torch.softmax(s, dim=-1).to(dtype)
-    return torch.einsum("bkgqt,btkh->bqkgh", pr, v).reshape(B, S, NQ, HD)
+    """Unmasked attention of q [B,S,Nq,hd] over a memory k/v [B,T,Nkv,hd];
+    under a mesh on each rank's heads, as ``self_attention``."""
+    G = q.shape[2] // k.shape[2]
+    shard = ctx.shard_index(q, _Q_AXES, 2)
+
+    def attend(q_, k_, v_):
+        B, S, NQ, HD = q_.shape
+        k_, v_ = _local_kv(q_, k_, v_, G, shard * NQ)
+        NKV = k_.shape[2]
+        qg = q_.reshape(B, S, NKV, NQ // NKV, HD)
+        s = torch.einsum("bqkgh,btkh->bkgqt", qg, k_).float() / math.sqrt(HD)
+        pr = torch.softmax(s, dim=-1).to(dtype)
+        return torch.einsum("bkgqt,btkh->bqkgh", pr, v_).reshape(B, S, NQ,
+                                                                 HD)
+
+    return ctx.local_call(attend, (q, k, v), (_Q_AXES, _KV_AXES, _KV_AXES),
+                          _Q_AXES)
 
 
 def cross_attention(x, p, spec: AttnSpec, kv_tokens):
     """Cross-attention to a static memory. x: [B,S,D]; kv_tokens: [B,T,D].
     Returns (out [B,S,D], (k, v) [B,T,Nkv,hd])."""
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("btd,dnh->btnh", kv_tokens, p["wk"])
-    v = torch.einsum("btd,dnh->btnh", kv_tokens, p["wv"])
+    q = proj_heads(x, p["wq"])
+    k = proj_heads(kv_tokens, p["wk"], _KVW_AXES)
+    v = proj_heads(kv_tokens, p["wv"], _KVW_AXES)
     if spec.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     out = _attend_memory(q, k, v, x.dtype)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), (k, v)
+    return proj_out(out, p["wo"]), (k, v)
 
 
 def cross_attention_cached(x, p, spec: AttnSpec, k, v):
     """Decode-time cross-attention against precomputed k/v [B,T,Nkv,hd]."""
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+    q = proj_heads(x, p["wq"])
     if spec.qk_norm:
         q = rmsnorm(q, p["q_norm"])
     out = _attend_memory(q, k, v, x.dtype)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+    return proj_out(out, p["wo"])

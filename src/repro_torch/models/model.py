@@ -26,6 +26,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as TF
+from repro_torch.sharding import ctx
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -155,12 +156,19 @@ def prefill(params, cfg: ModelConfig, tokens, extras=None, cache_len=None,
                          f"than the {nf}-row early-fusion prefix")
     cache_len = cache_len or S_
     cache = init_cache(cfg, B, cache_len, tokens.device)
-    x = TF._embed(params, cfg, tokens, extras)
+    if ctx.is_dtensor(tokens):  # under a mesh: the rules' cache layout
+        from repro_torch.sharding import policies as SH
+
+        mesh, rules = ctx.active()
+        cache = SH.distribute(cache, SH.cache_sharding(cfg, mesh, rules,
+                                                       cache))
+    x = ctx.constrain(TF._embed(params, cfg, tokens, extras), TF._RESID)
     cross = TF._cross_tokens(params, cfg, extras, kernel_impl)
     for p, spec, entry in zip(params["layers"], TF.layer_specs(cfg),
                               cache["layers"]):
         x, _, newc = TF.apply_layer(x, p, cfg, spec, cross_tokens=cross,
                                     want_cache=True, kernel_impl=kernel_impl)
+        x = ctx.constrain(x, TF._RESID)
         _fill_entry(cfg, spec, entry, newc, S_)
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     logits = TF._lm_head(params, cfg, x[:, -1:, :])
@@ -214,9 +222,62 @@ def decode_step(params, cfg: ModelConfig, cache, token, extras=None,
         # past the table's end every position reads its last row
         x = x + params["pos_embed"][torch.clamp(pos, max=cfg.max_seq - 1)
                                     ][:, None]
+    x = ctx.constrain(x, TF._RESID)
     for p, spec, entry in zip(params["layers"], TF.layer_specs(cfg),
                               cache["layers"]):
         x = _decode_layer(x, p, cfg, spec, entry, pos, kernel_impl)
     cache["pos"] += 1
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     return TF._lm_head(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# input specs per (arch x shape) cell: meta tensors
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape) -> dict:
+    """Abstract inputs for a dry-run cell, on the ``meta`` device (no
+    allocation). Keys depend on the shape's kind:
+
+      train:   batch={tokens, targets[, extras]}
+      prefill: tokens[, extras]
+      decode:  cache (``cache_spec``'s tree), token
+    """
+    from repro_torch.configs.base import SHAPES
+
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    B, S_ = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    def extras():
+        ex = {}
+        if cfg.vision_tokens:
+            ex["vision_embeds"] = meta((B, cfg.vision_tokens, cfg.d_model),
+                                       dt)
+        if cfg.early_fusion_tokens:
+            ex["vision_embeds"] = meta(
+                (B, cfg.early_fusion_tokens, cfg.d_model), dt)
+        if cfg.audio_frames:
+            ex["audio_frames"] = meta((B, cfg.audio_frames, cfg.d_model), dt)
+        return ex
+
+    ex = extras()
+    if shape.kind == "train":
+        batch = {"tokens": meta((B, S_), torch.int32),
+                 "targets": meta((B, S_), torch.int32)}
+        if ex:
+            batch["extras"] = ex
+        return {"batch": batch}
+    if shape.kind == "prefill":
+        out = {"tokens": meta((B, S_), torch.int32)}
+        if ex:
+            out["extras"] = ex
+        return out
+    spec = cache_spec(cfg, B, S_)
+    cache = {"pos": meta(*spec["pos"]),
+             "layers": [{k: meta(*v) for k, v in entry.items()}
+                        for entry in spec["layers"]]}
+    return {"cache": cache, "token": meta((B, 1), torch.int32)}

@@ -30,8 +30,14 @@ combines them on global token indices. Where G does not divide N it
 plans once over all N, as the JAX package does. The aux loss takes the
 routed share over all N tokens either way.
 
-The JAX package's ``weight_gather`` is a sharding constraint with no
-numeric effect on one card: it is accepted and changes nothing.
+Under a mesh (``sharding.ctx``) the plan is made on every rank over all
+N tokens, as the JAX package plans over all of them: the probabilities
+are gathered, B3 or ``plan_dispatch`` runs on the local (whole) tensor
+(``sharding.ctx.local_call``), and the replicated plan feeds each rank's
+local experts, whose FFNs run on local shards with their weights
+gathered along the embedding. ``weight_gather`` is the JAX package's
+use-site constraint to that same layout; like every constraint it
+changes no value, and without a context it does nothing.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from repro_torch.kernels.moe_dispatch.ref import (
     routed_share,
 )
 from repro_torch.models import layers as L
+from repro_torch.sharding import ctx
 
 
 def _bank(shape, scale, dtype, device, gen):
@@ -95,8 +102,33 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def _expert_ffn(blocks, p, mlp_kind):
-    """blocks: [E, C, d] -> [E, C, d] through each expert's FFN."""
+_W_IN = ("experts", "embed_full", "expert_mlp")
+_W_OUT = ("experts", "expert_mlp", "embed_full")
+
+
+def _expert_ffn(blocks, p, mlp_kind, weight_gather=False):
+    """blocks: [E, C, d] -> [E, C, d] through each expert's FFN.
+    ``weight_gather`` constrains the expert weights to an unsharded embed
+    dimension where they are used (the JAX package's ZeRO-3 gather)."""
+    def w(name, axes):
+        return ctx.constrain(p[name], axes) if weight_gather else p[name]
+
+    names = ("wi", "wo") + (("wg",) if "wg" in p else ())
+    axes = {"wi": _W_IN, "wo": _W_OUT, "wg": _W_IN}
+    ws = [w(n, axes[n]) for n in names]
+    # under a mesh each rank runs its experts (and its share of their
+    # hidden units where the experts do not divide the axis: a partial
+    # sum) on its blocks
+    return ctx.local_call(
+        lambda b, *w_: _ffn(b, dict(zip(names, w_)), mlp_kind),
+        (blocks, *ws), (_BLOCKS, *[axes[n] for n in names]), _BLOCKS,
+        contracted=("expert_mlp",))
+
+
+_BLOCKS = ("experts", "cap", "embed_act")
+
+
+def _ffn(blocks, p, mlp_kind):
     h = torch.bmm(blocks, p["wi"])
     if mlp_kind == "swiglu":
         h = F.silu(torch.bmm(blocks, p["wg"])) * h
@@ -154,7 +186,6 @@ def apply_moe(x, p, *, top_k, capacity_factor, mlp_kind="swiglu",
     kernel B3 or ``plan_dispatch`` (``kernel_impl``, as
     ``repro_torch.kernels.use_kernel`` reads it): one launch either way.
     """
-    del weight_gather  # a sharding constraint: nothing to do on one card
     B, S, D = x.shape
     N = B * S
     E = p["router"].shape[1]
@@ -175,8 +206,21 @@ def apply_moe(x, p, *, top_k, capacity_factor, mlp_kind="swiglu",
         out = torch.einsum("end,ne->nd", y, gate.to(y.dtype))
         load = routed_share(eidx, E)
     else:
-        planner = (_kernel_plan if use_kernel(kernel_impl, x.device)
+        plan_fn = (_kernel_plan if use_kernel(kernel_impl, x.device)
                    else plan_dispatch)
+
+        def planner(pr, *, top_k, capacity):
+            # every rank plans over all tokens: the plan is replicated
+            keys = ("slot_token", "slot_weight", "load") + (
+                ("count",) if pr.dim() == 3 else ())
+
+            def fn(pr_):
+                plan = plan_fn(pr_, top_k=top_k, capacity=capacity)
+                return tuple(plan[k] for k in keys)
+
+            outs = ctx.local_call(fn, (pr,), ((None,) * pr.dim(),),
+                                  (None,) * len(keys))
+            return dict(zip(keys, outs))
         G = dispatch_shards if dispatch_shards > 1 else 1
         if N % G:
             G = 1  # the JAX package's fallback: one plan over all N
@@ -203,16 +247,22 @@ def apply_moe(x, p, *, top_k, capacity_factor, mlp_kind="swiglu",
             st, w = plan["slot_token"], plan["slot_weight"]
             load = plan["load"]  # = the Switch loss's routed share
         # each expert's slots (of every group) as one [G*cap, D] block
+        # (the plan's 2-D [E, G*cap] view indexes the tokens directly:
+        # DTensor cannot split a flat slot dimension its rows shard)
         valid = st >= 0
-        gathered = xf[torch.where(valid, st, 0)]
-        gathered = torch.where(valid[:, None], gathered, 0).reshape(
-            E, G * cap, D)
-        y = _expert_ffn(gathered, p, mlp_kind).reshape(E * G * cap, D)
-        y = y * w[:, None].to(y.dtype)
+        st2, valid2 = st.view(E, G * cap), valid.view(E, G * cap)
+        gathered = xf[torch.where(valid2, st2, 0)]
+        gathered = torch.where(valid2[..., None], gathered, 0)
+        gathered = ctx.constrain(gathered, ("experts", "cap", "embed_act"))
+        y = _expert_ffn(gathered, p, mlp_kind, weight_gather)
+        y = ctx.constrain(y, ("experts", "cap", "embed_act"))
+        # the slots gathered along their capacity before the flat combine
+        y = ctx.constrain(y, ("experts", None, "embed_act"))
+        y = y.reshape(E * G * cap, D) * w[:, None].to(y.dtype)
         # the combine: empty slots land on the extra row N, sliced off
         out = torch.zeros((N + 1, D), dtype=y.dtype, device=x.device)
-        out.index_add_(0, torch.where(valid, st, N), y)
-        out = out[:N]
+        out = out.index_add(0, torch.where(valid, st, N), y)[:N]
+        out = ctx.constrain(out, ("tokens_act", "embed_act"))
 
     if "shared" in p:
         out = out + L.apply_mlp(mlp_kind, xf, p["shared"])

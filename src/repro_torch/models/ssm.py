@@ -8,7 +8,10 @@ Both go through kernel B5 (``kernels.rwkv6_scan``, hand-written CUDA)
 where ``use_kernel(kernel_impl, device)`` says so, and otherwise through
 its plain version, the loop over time the JAX package runs as a
 ``lax.scan``. Under autograd B5's backward is the plain version's
-(``kernels.autograd.kernel_call``). The projections, the decay and the
+(``kernels.autograd.kernel_call``). Under a mesh either one runs on each
+rank's local heads (``sharding.ctx.local_call``); the norm over all
+heads after it stays a DTensor op, reduced over the shards. The
+projections, the decay and the
 norms are plain PyTorch, as the JAX package left them to XLA.
 
 The Mamba head has no kernel in the JAX package: it is the same loop over
@@ -27,7 +30,17 @@ from repro_torch.kernels import use_kernel
 from repro_torch.kernels.autograd import kernel_call, needs_grad
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
-from repro_torch.models.layers import normal, rmsnorm
+from repro_torch.models.layers import (
+    normal,
+    proj_heads,
+    proj_out,
+    rmsnorm,
+)
+from repro_torch.sharding import ctx
+
+# the scan's operands [B,H,S,hd] / [B,H,hd,hd] and the bonus u [H,hd]
+_SCAN_AXES = ("batch", "heads_act", None, None)
+_U_AXES = ("heads_act", None)
 
 
 # ---------------------------------------------------------------------------
@@ -96,14 +109,16 @@ def _rwkv_inputs(x, x_prev, p):
     def mx(m):
         return x + (shifted - x) * m
 
-    r = torch.einsum("bsd,dnh->bsnh", mx(p["mix_r"]), p["wr"])
-    k = torch.einsum("bsd,dnh->bsnh", mx(p["mix_k"]), p["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", mx(p["mix_v"]), p["wv"])
-    g = torch.einsum("bsd,dnh->bsnh", mx(p["mix_g"]), p["wg"])
+    r = proj_heads(mx(p["mix_r"]), p["wr"])
+    k = proj_heads(mx(p["mix_k"]), p["wk"])
+    v = proj_heads(mx(p["mix_v"]), p["wv"])
+    g = proj_heads(mx(p["mix_g"]), p["wg"])
     lo = torch.tanh(torch.einsum("bsd,dl->bsl", mx(p["mix_w"]), p["wa"]))
     # w0 + lora in the model's type, then f32 for exp(-exp(.))
     wdec = torch.exp(-torch.exp(
-        (p["w0"][None, None] + torch.einsum("bsl,lnh->bsnh", lo, p["wb"]))
+        (p["w0"][None, None] + proj_heads(lo, p["wb"],
+                                          ("lora", "heads", "head_dim"),
+                                          ("batch", "seq", "lora")))
         .float()))
     return r, k, v, g, wdec
 
@@ -127,20 +142,36 @@ def rwkv_timemix(x, x_prev, state, p, kernel_impl="auto", state_out=None):
     r, k, v, wdec = (a.float().contiguous().transpose(1, 2)
                      for a in (r, k, v, wdec))
     u = p["u"].float()
-    if use_kernel(kernel_impl, x.device):
-        if state_out is not None and needs_grad(r, k, v, wdec, u, state):
-            raise ValueError("rwkv_timemix: state_out under autograd")
-        o, state = kernel_call(
-            lambda *a: rwkv6_scan(*a, state_out=state_out), rwkv6_scan_ref,
-            r, k, v, wdec, u, state, name="rwkv6_scan")
-    else:
-        o, state = rwkv6_scan_ref(r, k, v, wdec, u, state)
-        if state_out is not None:
-            state = state_out.copy_(state)
+    kernel = use_kernel(kernel_impl, x.device)
+    if kernel and state_out is not None and needs_grad(r, k, v, wdec, u,
+                                                       state):
+        raise ValueError("rwkv_timemix: state_out under autograd")
+
+    # a DTensor state (under a mesh) is written after the local scan
+    sharded = ctx.is_dtensor(state) or ctx.is_dtensor(r)
+    out_to = None if sharded else state_out
+
+    def scan(*a):
+        if kernel:
+            return kernel_call(
+                lambda *b: rwkv6_scan(*b, state_out=out_to),
+                rwkv6_scan_ref, *a, name="rwkv6_scan")
+        o_, st_ = rwkv6_scan_ref(*a)
+        if out_to is not None:
+            st_ = out_to.copy_(st_)
+        return o_, st_
+
+    o, state = ctx.local_call(scan, (r, k, v, wdec, u, state),
+                              (_SCAN_AXES,) * 4 + (_U_AXES, _SCAN_AXES),
+                              (_SCAN_AXES, _SCAN_AXES))
+    if sharded and state_out is not None:
+        state = state_out.copy_(state)
     out = o.transpose(1, 2).reshape(B, S, H * HD)
-    out = rmsnorm(out, p["ln_x"]).to(x.dtype)
+    # the norm's weight whole (ZeRO-3): DTensor would shard the
+    # normalized heads along the weight's own embed sharding
+    out = rmsnorm(out, ctx.constrain(p["ln_x"], ("embed_full",))).to(x.dtype)
     out = out * F.silu(g.reshape(B, S, H * HD))
-    out = torch.einsum("bsnh,nhd->bsd", out.reshape(B, S, H, HD), p["wo"])
+    out = proj_out(out.reshape(B, S, H, HD), p["wo"])
     return out, x[:, -1, :], state
 
 
@@ -162,8 +193,15 @@ def rwkv_channelmix_axes():
 def rwkv_channelmix(x, x_prev, p):
     """x: [B,S,D]; x_prev: [B,D]. Returns (out [B,S,D], new x_prev)."""
     xk = x + (_shifted(x, x_prev) - x) * p["mix_k"]
-    h = torch.square(F.relu(xk @ p["wk"]))
-    return h @ p["wv"], x[:, -1, :]
+
+    def f(x_, wk, wv):
+        return torch.square(F.relu(x_ @ wk)) @ wv
+
+    out = ctx.local_call(
+        f, (xk, p["wk"], p["wv"]),
+        (_X_AXES, ("embed_full", "mlp"), ("mlp", "embed_full")),
+        _X_AXES[:2] + (None,), contracted=("mlp",))
+    return out, x[:, -1, :]
 
 
 # ---------------------------------------------------------------------------
@@ -210,16 +248,48 @@ def mamba_head(x, state, p):
     Returns (out [B,S,D], new state). Each cast sits where the JAX
     package has it: B, C and the softplus of dt (+ ``dt_bias``, in x's
     type) go to f32 after their products in x's type, ``A_log`` to f32
-    before its exp; the loop over time runs in f32.
+    before its exp; the loop over time runs in f32. Under a mesh the
+    projections and the loop run on each rank's heads
+    (``sharding.ctx.local_call``); the norm over all heads after them
+    stays a DTensor op, reduced over the shards.
     """
     B, S, _ = x.shape
     H, HD = p["D"].shape
-    xh = torch.einsum("bsd,dnh->bsnh", x, p["wx"])
-    z = torch.einsum("bsd,dnh->bsnh", x, p["wz"])
-    Bt = (x @ p["wB"]).float()  # [B,S,N]
-    Ct = (x @ p["wC"]).float()
-    dt = F.softplus(x @ p["wdt"] + p["dt_bias"]).float()  # [B,S,H]
-    A = -torch.exp(p["A_log"].float())  # [H]
+    names = ("wx", "wz", "wB", "wC", "wdt", "dt_bias", "A_log", "D")
+    y, st = ctx.local_call(
+        _mamba_core, (x, state, *[p[n] for n in names]),
+        (_X_AXES, _STATE_AXES, *[_MAMBA_AXES[n] for n in names]),
+        (("batch", "seq", "heads", "head_dim"), _STATE_AXES))
+    y = rmsnorm(y.reshape(B, S, H * HD),
+                ctx.constrain(p["ln"], ("embed_full",))).to(x.dtype)
+    return proj_out(y.reshape(B, S, H, HD), p["wo"]), st
+
+
+_X_AXES = ("batch", "seq", "embed_act")
+_STATE_AXES = ("batch", "heads_act", None, None)
+# the weights gathered whole along the embedding (ZeRO-3), heads sharded
+_MAMBA_AXES = {
+    "wx": ("embed_full", "heads", "head_dim"),
+    "wz": ("embed_full", "heads", "head_dim"),
+    "wB": ("embed_full", "ssm_state"),
+    "wC": ("embed_full", "ssm_state"),
+    "wdt": ("embed_full", "heads"),
+    "dt_bias": ("heads",),
+    "A_log": ("heads",),
+    "D": ("heads", "head_dim"),
+}
+
+
+def _mamba_core(x, state, wx, wz, wB, wC, wdt, dt_bias, A_log, D):
+    """The Mamba head up to its norm: (y [B,S,H,hd] f32, new state)."""
+    B, S, _ = x.shape
+    H, HD = D.shape
+    xh = torch.einsum("bsd,dnh->bsnh", x, wx)
+    z = torch.einsum("bsd,dnh->bsnh", x, wz)
+    Bt = (x @ wB).float()  # [B,S,N]
+    Ct = (x @ wC).float()
+    dt = F.softplus(x @ wdt + dt_bias).float()  # [B,S,H]
+    A = -torch.exp(A_log.float())  # [H]
     decay = torch.exp(dt * A[None, None, :])  # [B,S,H]
     x32 = xh.float()
     inp = dt[..., None] * x32  # [B,S,H,hd]: dt_t * x_t of every step
@@ -250,7 +320,5 @@ def mamba_head(x, state, p):
             st.addcmul_(inp[:, t, :, :, None], Bt[:, t, None, None, :])
             torch.bmm(rows, Ct[:, t, :, None], out=ys[t])
     y = ys[..., 0].transpose(0, 1).reshape(B, S, H, HD)
-    y = y + p["D"][None, None].float() * x32
-    y = (y * F.silu(z.float())).reshape(B, S, H * HD)
-    y = rmsnorm(y, p["ln"]).to(x.dtype)
-    return torch.einsum("bsnh,nhd->bsd", y.reshape(B, S, H, HD), p["wo"]), st
+    y = y + D[None, None].float() * x32
+    return y * F.silu(z.float()), st

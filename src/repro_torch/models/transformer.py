@@ -34,6 +34,9 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
+from repro_torch.sharding import ctx
+
+_RESID = ("batch", "seq", "embed_act")  # the residual stream's axes
 
 # the encoder's layers: attention without RoPE and a dense MLP
 ENC_SPEC = LayerSpec(mixer="attn", attn_kind="full", use_rope=False)
@@ -319,9 +322,15 @@ def run_encoder(params, cfg, frames, kernel_impl="auto"):
 
 
 def _lm_head(params, cfg, x):
+    """The logits; under a mesh on local shards, the vocab sharded as the
+    rules shard it (``sharding.ctx.local_call``)."""
+    out = _RESID[:-1] + ("vocab",)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["tok_embed"])
-    return x @ params["lm_head"]
+        return ctx.local_call(
+            lambda x_, w: torch.einsum("bsd,vd->bsv", x_, w),
+            (x, params["tok_embed"]), (_RESID, ("vocab", "embed_full")), out)
+    return ctx.local_call(lambda x_, w: x_ @ w, (x, params["lm_head"]),
+                          (_RESID, ("embed_full", "vocab")), out)
 
 
 _MM = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
@@ -351,14 +360,14 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
     attention scores). The values are the same either way."""
     saves = REMAT_SAVES[remat_policy]
     extras = extras or {}
-    x = _embed(params, cfg, tokens, extras)
+    x = ctx.constrain(_embed(params, cfg, tokens, extras), _RESID)
     cross = _cross_tokens(params, cfg, extras, kernel_impl)
     aux_total = 0.0
 
     def run(x, p, spec):
         x, a, _ = apply_layer(x, p, cfg, spec, cross_tokens=cross,
                               kernel_impl=kernel_impl)
-        return x, a
+        return ctx.constrain(x, _RESID), a
 
     context = ({"context_fn": functools.partial(_remat_context, saves)}
                if saves else {})
@@ -376,10 +385,11 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
 def _token_ce(params, cfg, x, targets):
     """Each position's f32 cross entropy [B,s], x [B,s,D] against targets
     [B,s]: logsumexp minus the gold logit."""
-    logits = _lm_head(params, cfg, x).float()
+    x = ctx.constrain(x, _RESID)
+    logits = ctx.constrain(_lm_head(params, cfg, x).float(),
+                           ("batch", "seq", "vocab_act"))
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return lse - gold
+    return lse - ctx.take_last(logits, targets)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat=True,

@@ -8,7 +8,9 @@ arithmetic keeps the JAX package's order: the moments and the
 bias corrections in f32, ``b ** step`` with the step a 0-d int32 tensor
 cast to f32. The global norm sums the leaves in the port's order
 (``torch.utils._pytree``), not JAX's sorted one, so it matches to
-rounding, not bit for bit.
+rounding, not bit for bit. The trees may hold DTensors (a tensor-parallel
+trainer's): every op then acts on the whole tensors, and the update
+keeps each leaf's placements.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 
 
@@ -96,9 +99,15 @@ def opt_state_axes(cfg: OptConfig, params_axes, abstract_params):
 
 
 def _global_norm(leaves):
+    """The norm of all leaves together. A DTensor leaf's sum of squares
+    is its whole tensor's, reduced over its shards (``full_tensor``), so
+    the norm is the global one on every rank."""
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for g in leaves:
-        total = total + torch.sum(torch.square(g.float()))
+        sq = torch.sum(torch.square(g.float()))
+        if isinstance(sq, DTensor):
+            sq = sq.full_tensor()
+        total = total + sq
     return torch.sqrt(total)
 
 

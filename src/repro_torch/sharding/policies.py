@@ -80,14 +80,16 @@ class NamedSharding:
 
     def placements(self) -> tuple:
         """DTensor placements, one per mesh axis: ``Shard(d)`` where
-        dimension d's entry names the axis, else ``Replicate()``."""
+        dimension d's entry names the axis, else ``Replicate()`` (also
+        for an axis of size 1: one shard is the whole tensor, and DTensor
+        cannot reshape a sharded dimension)."""
         from torch.distributed.tensor import Replicate, Shard
 
         out = []
-        for axis in self.mesh.axis_names:
+        for axis, n in zip(self.mesh.axis_names, self.mesh.axis_sizes):
             dims = [d for d, e in enumerate(self.spec)
                     if e == axis or (isinstance(e, tuple) and axis in e)]
-            out.append(Shard(dims[0]) if dims else Replicate())
+            out.append(Shard(dims[0]) if dims and n > 1 else Replicate())
         return tuple(out)
 
 
@@ -216,6 +218,20 @@ def params_sharding(cfg, mesh: Mesh, rules: dict, abstract_params=None):
     if abstract_params is None:
         abstract_params = M.abstract_params(cfg)
     return tree_sharding(param_axes(cfg), abstract_params, mesh, rules)
+
+
+def distribute(tree, sharding_tree):
+    """Each tensor of ``tree`` as a DTensor placed as its
+    ``NamedSharding`` in ``sharding_tree`` (a mesh on a ``DeviceMesh``).
+    Every rank holds the same full tensor (the same seed, or the same
+    checkpoint), so each keeps its own shard and nothing is sent; a
+    ``meta`` tensor stays on ``meta``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return tree_map(
+        lambda t, sh: distribute_tensor(t, sh.mesh.device_mesh,
+                                        sh.placements(), src_data_rank=None),
+        tree, sharding_tree)
 
 
 def batch_sharding(mesh: Mesh, rules: dict, batch_spec):

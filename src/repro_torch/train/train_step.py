@@ -7,8 +7,11 @@ per-layer remat (``models.transformer.forward``) through
 ``torch.autograd.grad``; with several microbatches they accumulate in
 f32 and are divided by their number, and so is the loss; with one they
 stay in the params' dtype, as ``jax.value_and_grad`` leaves them.
-``grad_reduce``, where given, reduces (grads, loss) across
-data-parallel ranks before the update (``launch.train`` fills it).
+
+Params that are DTensors (``launch.train`` under a process mesh) give
+DTensor gradients that autograd has already reduced over the mesh (a
+partial sum where a param is replicated over ranks that saw different
+rows); each is redistributed to its param's placements.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ModelConfig
@@ -32,14 +36,36 @@ class TrainConfig:
 
 
 def _split_micro(batch, n):
+    """[B, ...] -> [n, B / n, ...]: microbatch i is rows i B/n .. (i + 1)
+    B/n - 1, as on one device. A DTensor sharded along its rows is
+    gathered whole along them first and its microbatches are then
+    sharded along their own rows: the MoE plans its capacity and its aux
+    loss per microbatch, so only the same grouping of rows gives the
+    same loss."""
     def f(x):
         b = x.shape[0]
         if b % n:
             raise ValueError(f"batch {b} does not split into {n} "
                              f"microbatches")
+        if isinstance(x, DTensor) and any(p.is_shard(0)
+                                          for p in x.placements):
+            whole = [Replicate() if p.is_shard(0) else p
+                     for p in x.placements]
+            pl = [Shard(p.dim + 1) if p.is_shard() else p
+                  for p in x.placements]
+            x = x.redistribute(x.device_mesh, whole)
+            x = x.reshape((n, b // n) + tuple(x.shape[1:]))
+            return x.redistribute(x.device_mesh, pl)
         return x.reshape((n, b // n) + tuple(x.shape[1:]))
 
     return pytree.tree_map(f, batch)
+
+
+def _placed_like(g, p):
+    """A DTensor gradient with its param's placements."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def loss_and_grads(mcfg: ModelConfig, tcfg: TrainConfig, params, batch, *,
@@ -56,16 +82,15 @@ def loss_and_grads(mcfg: ModelConfig, tcfg: TrainConfig, params, batch, *,
                              loss_chunk=tcfg.loss_chunk,
                              kernel_impl=kernel_impl)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
              for g, p in zip(grads, flat)]
     return loss.detach(), pytree.tree_unflatten(grads, spec)
 
 
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *,
-                    kernel_impl="auto", grad_reduce=None):
+                    kernel_impl="auto"):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm"})``. ``grad_reduce(grads, loss) -> (grads,
-    loss)`` runs between the backward and the update."""
+    {"loss", "grad_norm"})``."""
 
     def train_step(params, opt_state, batch):
         if tcfg.microbatches > 1:
@@ -87,8 +112,6 @@ def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, *,
         else:
             loss, grads = loss_and_grads(mcfg, tcfg, params, batch,
                                          kernel_impl=kernel_impl)
-        if grad_reduce is not None:
-            grads, loss = grad_reduce(grads, loss)
         params, opt_state, om = opt_update(tcfg.opt, grads, opt_state,
                                            params)
         return params, opt_state, {"loss": loss, **om}

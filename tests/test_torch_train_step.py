@@ -3,8 +3,8 @@ gemma3-1b's SMOKE config cut to one pattern repeat, in float32: one step
 at 1 and 2 microbatches from the same weights, and a JAX run carried
 across (2 JAX steps, then ``params_from_numpy`` and
 ``opt_state_from_numpy``) whose third step matches. Data parallelism
-under 2 spawned gloo ranks (``launch.train`` on a ``data`` axis of 2)
-equals the one-process full-batch step, and ``compressed_psum_pod``
+under 2 spawned gloo ranks (``launch.train`` on a ``data`` axis of 2,
+its params DTensors) equals the one-process full-batch step, and ``compressed_psum_pod``
 over a 2-rank ``pod`` group averages as the reference's test
 (``tests/test_sharding.py``'s ``test_compressed_pod_psum_8dev``) holds
 it.
@@ -205,8 +205,10 @@ def work(rank, world, store, out, q):
     state, m = run_step(init(), pipe.batch(0))
     res = {{"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
            "rows": pipe.local_batch}}
+    # the params are DTensors: every rank joins each one's gather
+    flat = [t.full_tensor()
+            for t in torch.utils._pytree.tree_leaves(state["params"])]
     if rank == 0:
-        flat = torch.utils._pytree.tree_leaves(state["params"])
         np.savez(out, *[t.numpy() for t in flat])
     pod = process_mesh((world,), ("pod",))
     g = {{"w": torch.ones((16, 8)) * 0.5, "v": torch.full((5,), 1.0 + rank)}}
