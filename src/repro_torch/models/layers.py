@@ -126,7 +126,8 @@ def _mlp_axes_of(x):
 
 def apply_mlp(kind, x, p):
     """The MLP; under a mesh on local shards: its hidden units over the
-    rules' ``mlp`` axes (Megatron), the output a partial sum over them."""
+    rules' ``mlp`` axes (Megatron), the output a partial sum over them,
+    reduced once by ``local_call``."""
     names = ("wi", "wo") + (("wg",) if "wg" in p else ())
     axes = {"wi": ("embed_full", "mlp"), "wo": ("mlp", "embed_full"),
             "wg": ("embed_full", "mlp")}
@@ -220,7 +221,7 @@ def proj_heads(x, w, w_axes=_W_AXES, x_axes=_X_AXES):
 def proj_out(o, w, o_axes=_O_AXES, w_axes=_WO_AXES):
     """o [B,S,N,H] @ w [N,H,D] -> [B,S,D] (``einsum("bsnh,nhd->bsd")``),
     under a mesh on local shards: a partial sum over the mesh axes that
-    shard the heads, which DTensor reduces."""
+    shard the heads, which ``local_call`` reduces once, in o's dtype."""
     return ctx.local_call(
         lambda o_, w_: torch.einsum("bsnh,nhd->bsd", o_, w_),
         (o, w), (o_axes, w_axes), o_axes[:2] + (None,),

@@ -32,12 +32,19 @@ routed share over all N tokens either way.
 
 Under a mesh (``sharding.ctx``) the plan is made on every rank over all
 N tokens, as the JAX package plans over all of them: the probabilities
-are gathered, B3 or ``plan_dispatch`` runs on the local (whole) tensor
-(``sharding.ctx.local_call``), and the replicated plan feeds each rank's
-local experts, whose FFNs run on local shards with their weights
-gathered along the embedding. ``weight_gather`` is the JAX package's
-use-site constraint to that same layout; like every constraint it
-changes no value, and without a context it does nothing.
+(a few numbers a token) are gathered, and B3 or ``plan_dispatch`` runs
+on the local (whole) tensor (``sharding.ctx.local_call``). The tokens
+themselves are not gathered (``_sharded_slots``): each rank fills the
+slots of its own tokens, a reduce-scatter along the capacity puts each
+slot on the rank that holds it, each rank's experts run on their blocks
+with their weights gathered along the embedding, and each rank adds its
+slots' outputs into their tokens' rows, a sum reduced onto the ranks
+that hold those tokens (a reduce-scatter, then an all-reduce over the
+expert shards; where a rank holds fewer slots than there are tokens,
+the outputs are gathered along the capacity instead).
+``weight_gather`` is the JAX package's use-site constraint to the
+experts' layout; like every constraint it changes no value, and without
+a context it does nothing.
 """
 
 from __future__ import annotations
@@ -137,6 +144,85 @@ def _ffn(blocks, p, mlp_kind):
     else:
         h = _gelu(h)
     return torch.bmm(h, p["wo"])
+
+
+_TOKENS = ("tokens_act", "embed_act")
+
+
+def _sharded_slots(xf, st2, w2, p, mlp_kind, weight_gather):
+    """The gather, the experts and the combine under a mesh, from the
+    replicated plan (``st2``, ``w2``: [E, slots] slot tokens and
+    weights): no rank receives a token its slots do not hold, or an
+    output of a token it does not hold.
+
+    Dispatch: each rank fills, from its own tokens (the other rows zero),
+    the part of the [E, slots, D] blocks that its shards along the mesh
+    axes that do not shard the tokens give it; the blocks are the sum of
+    these over the token axes, reduced onto their own placements (a
+    reduce-scatter along the capacity). Combine: each rank adds its
+    slots' weighted outputs into the rows of their tokens, and that sum
+    over the ranks is reduced onto the tokens' own placements (a
+    reduce-scatter over the token axes, then an all-reduce over the
+    expert shards), in the activations' dtype; where a rank's slots
+    along the token axes are fewer than the tokens, the outputs are
+    gathered along those axes instead and each rank adds in its own
+    tokens' slots. A tensor whose local part each rank uses for other
+    rows gets a partial-sum gradient along that axis; each reduction's
+    backward is a gather of the gradient."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    tok = ctx.placements(xf, _TOKENS)
+    xf = xf.redistribute(xf.device_mesh, tok)
+    dm = xf.device_mesh
+    taxes = {m for m, pl in enumerate(tok) if pl.is_shard(0)}
+    E, n_slots = st2.shape
+    N, D = xf.shape
+    n_loc = N // math.prod(dm.size(m) for m in taxes)
+    r0 = ctx.shard_index(xf, _TOKENS, 0) * n_loc
+    want = ctx.placements((E, n_slots, D), _BLOCKS)
+    # the plan's slots on this rank, for the blocks' shards over every
+    # mesh axis (``held``) and over those that do not shard the tokens
+    held = [pl if pl.is_shard(0) or pl.is_shard(1) else Replicate()
+            for pl in want]
+    part = [Replicate() if m in taxes else pl for m, pl in enumerate(held)]
+
+    def partial_where(pl, differs):
+        return [Partial() if differs(m) else q for m, q in enumerate(pl)]
+
+    def reduce(t, to):
+        # the shards first (reduce-scatters), then the rest (all-reduces)
+        t = t.redistribute(dm, [q if p.is_partial() and q.is_shard() else p
+                                for p, q in zip(t.placements, to)])
+        return t.redistribute(dm, to)
+
+    st_l = st2.redistribute(dm, part).to_local()
+    own = (st_l >= r0) & (st_l < r0 + n_loc)
+    x_l = xf.to_local(grad_placements=partial_where(
+        tok, lambda m: m not in taxes and part[m].is_shard()))
+    blk = torch.where(own[..., None], x_l[torch.where(own, st_l - r0, 0)], 0)
+    blk = reduce(DTensor.from_local(
+        blk, dm, partial_where(part, taxes.__contains__), run_check=False),
+        want)
+    y = _expert_ffn(blk, p, mlp_kind, weight_gather)
+    # the combine gathers the outputs along the token axes where that is
+    # fewer rows than the tokens (many experts a rank), else each rank
+    # adds its own slots into all N rows, a sum reduce-scattered over them
+    gather = taxes if st_l.numel() < N else set()
+    pl = [Replicate() if m in gather else q for m, q in enumerate(held)]
+    lo, n = (r0, n_loc) if gather else (0, N)
+    st_c = st2.redistribute(dm, pl).to_local()
+    y_c, w_c = (t.redistribute(dm, pl).to_local(
+        grad_placements=partial_where(pl, gather.__contains__))
+        for t in (y, w2))
+    y_c = y_c * w_c[..., None].to(y_c.dtype)
+    # slots of other rows (and empty ones) land on the extra row n
+    at = torch.where((st_c >= lo) & (st_c < lo + n), st_c - lo, n)
+    out = torch.zeros((n + 1, D), dtype=y_c.dtype, device=y_c.device)
+    out = out.index_add(0, at.reshape(-1), y_c.reshape(-1, D))[:n]
+    out = DTensor.from_local(out, dm, [
+        tok[m] if m in gather else Partial() if q.is_shard() else Replicate()
+        for m, q in enumerate(pl)], run_check=False)
+    return reduce(out, tok)
 
 
 def plan_dispatch(router_probs, top_k, capacity):
@@ -251,18 +337,17 @@ def apply_moe(x, p, *, top_k, capacity_factor, mlp_kind="swiglu",
         # DTensor cannot split a flat slot dimension its rows shard)
         valid = st >= 0
         st2, valid2 = st.view(E, G * cap), valid.view(E, G * cap)
-        gathered = xf[torch.where(valid2, st2, 0)]
-        gathered = torch.where(valid2[..., None], gathered, 0)
-        gathered = ctx.constrain(gathered, ("experts", "cap", "embed_act"))
-        y = _expert_ffn(gathered, p, mlp_kind, weight_gather)
-        y = ctx.constrain(y, ("experts", "cap", "embed_act"))
-        # the slots gathered along their capacity before the flat combine
-        y = ctx.constrain(y, ("experts", None, "embed_act"))
-        y = y.reshape(E * G * cap, D) * w[:, None].to(y.dtype)
-        # the combine: empty slots land on the extra row N, sliced off
-        out = torch.zeros((N + 1, D), dtype=y.dtype, device=x.device)
-        out = out.index_add(0, torch.where(valid, st, N), y)[:N]
-        out = ctx.constrain(out, ("tokens_act", "embed_act"))
+        if ctx.is_dtensor(xf):
+            out = _sharded_slots(xf, st2, w.view(E, G * cap), p, mlp_kind,
+                                 weight_gather)
+        else:
+            gathered = xf[torch.where(valid2, st2, 0)]
+            gathered = torch.where(valid2[..., None], gathered, 0)
+            y = _expert_ffn(gathered, p, mlp_kind, weight_gather)
+            y = y.reshape(E * G * cap, D) * w[:, None].to(y.dtype)
+            # the combine: empty slots land on the extra row N, sliced off
+            out = torch.zeros((N + 1, D), dtype=y.dtype, device=x.device)
+            out = out.index_add(0, torch.where(valid, st, N), y)[:N]
 
     if "shared" in p:
         out = out + L.apply_mlp(mlp_kind, xf, p["shared"])

@@ -384,11 +384,13 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
 
 def _token_ce(params, cfg, x, targets):
     """Each position's f32 cross entropy [B,s], x [B,s,D] against targets
-    [B,s]: logsumexp minus the gold logit."""
+    [B,s]: logsumexp minus the gold logit. Under a mesh both are taken
+    on the vocab shards (``sharding.ctx.logsumexp_last``, ``take_last``):
+    the logits are never gathered."""
     x = ctx.constrain(x, _RESID)
     logits = ctx.constrain(_lm_head(params, cfg, x).float(),
                            ("batch", "seq", "vocab_act"))
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = ctx.logsumexp_last(logits)
     return lse - ctx.take_last(logits, targets)
 
 

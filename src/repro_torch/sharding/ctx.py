@@ -12,8 +12,9 @@ under a mesh of another form, is returned unchanged.
 CUDA wrappers take raw pointers, so a kernel (or, on the CPU, its plain
 version) gets each rank's local shards, and its outputs come back as
 DTensors with the placements the rules give. ``shard_index`` is which
-shard of a dimension this rank holds, and ``take_last`` a gather along
-the last dimension that DTensor can shard.
+shard of a dimension this rank holds; ``take_last`` a gather and
+``logsumexp_last`` a log-sum-exp along the last dimension, both of which
+keep that dimension on its shards where DTensor shards it.
 """
 
 from __future__ import annotations
@@ -118,12 +119,16 @@ def local_call(fn, args, in_axes, out_axes, contracted=()):
     output dimension is sharded over the mesh axes that shard an arg's
     dimension of the same logical axis; over a mesh axis that shards an
     axis in ``contracted`` (one that ``fn`` sums over) the output is a
-    partial sum, which DTensor reduces; over any other it is replicated.
+    partial sum, reduced here, once, in the dtype ``fn`` gave it (no
+    ``Partial`` placement leaves this function: a partial sum left
+    pending would be reduced again by each op that reads it, in that
+    op's dtype); over any other axis it is replicated.
 
     Gradients: where some arg is sharded along a mesh axis, each rank's
     ``fn`` sees other rows (or heads) than its neighbours', so an arg
-    replicated along that axis gets a partial sum there (DTensor reduces
-    it); one that is replicated along an axis no arg shards gets the
+    replicated along that axis gets a partial sum there, which the
+    backward of its redistribution reduces, once, in the gradient's
+    dtype; one that is replicated along an axis no arg shards gets the
     same gradient on every rank, a replicated one. Slicing a replicated
     arg by rank inside ``fn`` (the query heads' own kv heads) is a case
     of the first kind."""
@@ -169,10 +174,48 @@ def local_call(fn, args, in_axes, out_axes, contracted=()):
                     pl[m] = Partial()
         return pl
 
-    wrapped = tuple(
-        DTensor.from_local(o, dm, out_placements(axes), run_check=False)
-        for o, axes in zip(outs, out_axes, strict=True))
+    def wrap(o, axes):
+        pl = out_placements(axes)
+        dt = DTensor.from_local(o, dm, pl, run_check=False)
+        if not any(p.is_partial() for p in pl):
+            return dt
+        # the partial sum reduced here, once, in the output's own dtype,
+        # to where ``axes`` resolve
+        want = placements(o, tuple(axes or (None,) * o.dim()))
+        return dt.redistribute(dm, [w if p.is_partial() else p
+                                    for p, w in zip(pl, want)])
+
+    wrapped = tuple(wrap(o, axes) for o, axes in zip(outs, out_axes,
+                                                     strict=True))
     return wrapped[0] if single else wrapped
+
+
+def _last_sharded(x) -> bool:
+    return is_dtensor(x) and any(p.is_shard(x.dim() - 1)
+                                 for p in x.placements)
+
+
+def _rows(x, y):
+    """y (a reduction of x over its last dimension) reduced over the
+    shards of that dimension: placed as x's other dimensions are."""
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if p.is_shard(x.dim() - 1) else p
+          for p in x.placements]
+    return y.redistribute(x.device_mesh, pl)
+
+
+def logsumexp_last(x):
+    """``torch.logsumexp(x, -1)``. A DTensor sharded along the last
+    dimension takes it on its shards: each rank's max, reduced with max,
+    then each rank's sum of ``exp(x - max)``, reduced with sum; the
+    collectives move one number a row, never x (DTensor's own logsumexp
+    gathers x whole along the shards). The max is a constant of the
+    gradient, as in ``torch.logsumexp``."""
+    if not _last_sharded(x):
+        return torch.logsumexp(x, dim=-1)
+    m = _rows(x, x.detach().amax(dim=-1))
+    return torch.log(_rows(x, torch.exp(x - m[..., None]).sum(-1))) + m
 
 
 def take_last(x, idx):
@@ -181,8 +224,8 @@ def take_last(x, idx):
     masked sum instead (one non-zero term a position, so the same value),
     which DTensor reduces over the shards: its gather over a sharded
     dimension cannot be reduced."""
-    if is_dtensor(x) and any(p.is_shard(x.dim() - 1)
-                              for p in x.placements):
+    if _last_sharded(x):
         iota = torch.arange(x.shape[-1], device=x.device)
-        return torch.where(iota == idx[..., None].long(), x, 0.0).sum(-1)
+        return _rows(x, torch.where(iota == idx[..., None].long(), x,
+                                    0.0).sum(-1))
     return torch.gather(x, -1, idx[..., None].long())[..., 0]
