@@ -329,6 +329,18 @@ Phases (each raises on failure; the script then exits non-zero):
                each training cell traced on ``meta`` and priced at the
                H100's peaks (``launch.roofline``): its compute and
                memory lower bounds beside its measured ms a step.
+ 19. main path, slice 16: decode over a sequence-sharded cache on one
+               card — gemma3-1b at full width (26 layers, 1 KV head,
+               bf16, batch 1), its 32,768-row cache filled by a real
+               32,767-token prefill on the kernel path (B4 once a
+               layer), then one decode step twice: through the unsplit
+               ``decode_attention``, and with every layer's cache cut
+               into SEQ_DECODE_BLOCKS row blocks, each block through
+               ``layers.decode_rows`` (the arithmetic one rank runs on
+               its rows under a mesh) and the blocks combined by the
+               max, sum and bf16 sum the collectives perform; the
+               logits within FIRST_LOGIT_TOL, both step times. The
+               collectives themselves need several cards.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -737,6 +749,12 @@ PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 4, 2048
 PIPE_GRAD_RTOL = 1e-2
 # the checkpoint's next step against the uninterrupted run's
 TRAIN_RESUME_TOL = 1e-3
+# Phase 19 (slice 16): gemma3-1b's decode with its cache's rows cut into
+# blocks as a mesh of SEQ_DECODE_BLOCKS ranks along cache_seq holds them;
+# the cache is SEQ_DECODE_ROWS rows, all but the decoded token's filled
+# by the prefill
+SEQ_DECODE_ROWS, SEQ_DECODE_BLOCKS = 32768, 4
+SEQ_DECODE_REPEATS = 5  # timed steps a path, after one untimed
 # each autograd Function's backward against autograd through the plain
 # version on the same inputs: the same kernels, so equal up to the
 # atomics of index_add_ and embedding-style backwards; held to this
@@ -6128,6 +6146,124 @@ def main_path_slice14(device, step0) -> dict:
             "moe_dispatch": a["moe_dispatch"]}
 
 
+def split_decode_attention(x, p, spec, cache_k, cache_v, pos, ring=False,
+                           cache_kpos=None, blocks=SEQ_DECODE_BLOCKS):
+    """``layers.decode_attention`` with the cache's rows cut into
+    ``blocks`` row blocks on one card, as ``blocks`` ranks along
+    ``cache_seq`` hold them: each block through ``layers.decode_rows``
+    (the blocks folded into the batch, so one call runs them all), the
+    blocks' row max and row sum of exp combined by a max and a sum over
+    the blocks in f32, their weighted V partial sums added in the
+    activations' dtype, one add at a time, as the collectives do."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    q, positions = L._decode_write(x, p, spec, cache_k, cache_v, pos, ring,
+                                   cache_kpos)
+    B, S, NKV, HD = cache_k.shape
+    t = S // blocks
+    G = spec.num_heads // NKV
+
+    def cut(a):  # [B, S, ...] -> [blocks * B, t, ...], block-major
+        return a.reshape(B, blocks, t, *a.shape[2:]).transpose(0, 1).reshape(
+            blocks * B, t, *a.shape[2:])
+
+    kpos = cut(cache_kpos) if ring else None
+    valid = torch.cat([L._valid_rows(
+        spec, positions, ring, kpos[i * B:(i + 1) * B] if ring else None,
+        i * t, t) for i in range(blocks)])
+
+    def over_blocks(reduce):
+        def f(a):
+            a = a.reshape(blocks, B, *a.shape[1:])
+            return reduce(a).expand_as(a).reshape(blocks * B, *a.shape[2:])
+        return f
+
+    qg = q.reshape(B, 1, NKV, G, HD).repeat(blocks, 1, 1, 1, 1)
+    parts = L.decode_rows(
+        qg, cut(cache_k), cut(cache_v), valid, x.dtype,
+        reduce_max=over_blocks(lambda a: a.amax(0, keepdim=True)),
+        reduce_sum=over_blocks(lambda a: a.sum(0, keepdim=True)))
+    parts = parts.reshape(blocks, B, *parts.shape[1:])
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return L.proj_out(out, p["wo"])
+
+
+def main_path_slice16(device) -> int:
+    """Phase 19: gemma3-1b's decode over a cache cut into row blocks, as
+    a sequence-sharded mesh holds it, against the unsplit decode on one
+    card (``split_decode_attention``). Returns B4's launches (the
+    prefill's)."""
+    import copy
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = full_model("gemma3-1b", device)
+    gen = torch.Generator().manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (1, SEQ_DECODE_ROWS - 1),
+                           generator=gen).to(device)
+    reset_launches()
+    t0 = time.time()
+    with torch.no_grad():
+        logits, cache = M.prefill(params, cfg, prompt,
+                                  cache_len=SEQ_DECODE_ROWS)
+        torch.cuda.synchronize()
+    launches = fa_ops.launches
+    if launches != cfg.num_layers:
+        raise AssertionError(f"prefill launched flash_attention {launches} "
+                             f"times, not {cfg.num_layers}")
+    print(f"seq decode: gemma3-1b prefill of {prompt.shape[1]} tokens into "
+          f"a {SEQ_DECODE_ROWS}-row cache in {time.time() - t0:.3f} s, "
+          f"flash_attention launches {launches}")
+    token = logits.argmax(-1)
+    pos = cache["pos"].clone()
+
+    def step(attention):
+        c = copy.deepcopy(cache)
+        orig = L.decode_attention
+        L.decode_attention = attention
+        try:
+            with torch.no_grad():
+                out, _ = M.decode_step(params, cfg, c, token)
+                ms = []
+                for _ in range(SEQ_DECODE_REPEATS):
+                    c["pos"].copy_(pos)  # the same token at the same row
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    M.decode_step(params, cfg, c, token)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+        finally:
+            L.decode_attention = orig
+        return out.float(), sorted(ms)[len(ms) // 2]
+
+    whole, whole_ms = step(L.decode_attention)
+    split, split_ms = step(split_decode_attention)
+    err = (whole - split).abs().max().item()
+    print(f"seq decode: one step, batch 1 at row {int(pos[0])} of "
+          f"{SEQ_DECODE_ROWS}, median of {SEQ_DECODE_REPEATS}: unsplit "
+          f"{whole_ms:.3f} ms, {SEQ_DECODE_BLOCKS} row blocks through "
+          f"decode_rows {split_ms:.3f} ms; logits |diff| {err:.6f} "
+          f"(largest |logit| {whole.abs().max().item():.4f}, tolerance "
+          f"{FIRST_LOGIT_TOL}); {gpu_name_and_power()}")
+    if not err <= FIRST_LOGIT_TOL:
+        raise AssertionError(f"split decode logits differ by {err}")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6269,6 +6405,9 @@ def main() -> int:
     rows[2]["launches"] += slice14["flash_attention"]
     rows[3]["launches"] += slice14["rwkv6_scan"]
     rows[4]["launches"] += slice14["moe_dispatch"]
+    rows[2]["launches"] += phase("main path, slice 16: decode over a "
+                                 "sequence-sharded cache", main_path_slice16,
+                                 device)
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -38,7 +38,8 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 def rmsnorm(x, w, eps=1e-6):
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    # under a mesh the normalized dimension may be sharded (rwkv's ln_x)
+    var = ctx.mean_last(x32 * x32)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
@@ -360,16 +361,37 @@ def self_attention(x, p, spec: AttnSpec, positions=None, q_offset=0,
     return proj_out(out, p["wo"]), (k, v)
 
 
-def decode_attention(x, p, spec: AttnSpec, cache_k, cache_v, pos,
-                     ring: bool = False, cache_kpos=None):
-    """Single-token decode. x: [B,1,D]; cache: [B,S,Nkv,hd]; pos: [B].
+def decode_rows(qg, k, v, valid, dtype, reduce_max=None, reduce_sum=None):
+    """Decode attention over some of a cache's rows, as flash-decode
+    splits it over the holders of the rows (one rank's arithmetic).
 
-    Writes this token's k/v (and, with ``ring=True``, its absolute
-    position into ``cache_kpos`` [B,S]) into the caches IN PLACE, then
-    attends over them; returns out [B,1,D]. With ``ring=True`` the cache
-    length is the attention window and writes wrap; ``cache_kpos`` keeps
-    the SWA/chunked masks exact across wraps.
-    """
+    qg [b, 1, Nkv, G, hd]: one token's queries in kv-head groups; k, v
+    [b, t, Nkv, hd] and valid bool [b, t]: the rows held here. The row
+    max and the row sum of ``exp(s - max)`` ([b, Nkv, G, 1, 1], f32) are
+    combined with the other holders' by ``reduce_max`` and
+    ``reduce_sum`` (None: these rows are all of them). Returns the sum of
+    ``softmax · v`` over these rows, [b, 1, Nkv * G, hd] in ``dtype``: a
+    partial sum whose sum over the holders is the attention output."""
+    b, _, nkv, g, hd = qg.shape
+    s = torch.einsum("bqkgh,btkh->bkgqt", qg, k).float() / math.sqrt(hd)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    if reduce_max is not None:
+        m = reduce_max(m)
+    e = torch.exp(s - m)
+    den = e.sum(dim=-1, keepdim=True)
+    if reduce_sum is not None:
+        den = reduce_sum(den)
+    pr = (e / den).to(dtype)
+    return torch.einsum("bkgqt,btkh->bqkgh", pr, v).reshape(b, 1, nkv * g,
+                                                            hd)
+
+
+def _decode_write(x, p, spec: AttnSpec, cache_k, cache_v, pos, ring,
+                  cache_kpos):
+    """``decode_attention``'s first half: this token's k/v (and, with
+    ``ring``, its position) written into the caches IN PLACE; returns its
+    q [B,1,Nq,hd] and positions [B,1]."""
     B = x.shape[0]
     S = cache_k.shape[1]
     positions = torch.as_tensor(pos, device=x.device).reshape(-1, 1).expand(B, 1)
@@ -385,32 +407,49 @@ def decode_attention(x, p, spec: AttnSpec, cache_k, cache_v, pos,
     else:
         cache_k[bidx, slot] = k[:, 0]
         cache_v[bidx, slot] = v[:, 0]
-
-    NQ, HD = spec.num_heads, spec.head_dim
-    NKV = spec.num_kv_heads
-    G = NQ // NKV
     if ring:
         if ctx.is_dtensor(cache_kpos):
             cache_kpos.copy_(torch.where(at, positions[:, :1].to(
                 cache_kpos.dtype), cache_kpos))
         else:
             cache_kpos[bidx, slot] = positions[:, 0].to(cache_kpos.dtype)
-        valid = cache_kpos >= 0
-        if spec.kind == "swa" and spec.window:
-            valid &= positions[:, :1] - cache_kpos < spec.window
-        elif spec.kind == "chunked" and spec.window:
-            valid &= (torch.div(cache_kpos, spec.window, rounding_mode="floor")
-                      == torch.div(positions[:, :1], spec.window,
-                                   rounding_mode="floor"))
+    return q, positions[:, :1]
+
+
+def _valid_rows(spec: AttnSpec, positions, ring, kpos, row0, t):
+    """bool [b, t]: the cache rows the token at ``positions`` [b, 1]
+    reads, a linear cache's t rows from ``row0`` or, with ``ring``, a
+    ring cache's rows at positions ``kpos`` [b, t] (-1: unwritten)."""
+    if ring:
+        rows, valid = kpos, kpos >= 0
     else:
-        k_abs = torch.arange(S, device=x.device)[None, :]
-        valid = k_abs <= positions[:, :1]
-        if spec.kind == "swa" and spec.window:
-            valid &= k_abs > positions[:, :1] - spec.window
-        elif spec.kind == "chunked" and spec.window:
-            valid &= (torch.div(k_abs, spec.window, rounding_mode="floor")
-                      == torch.div(positions[:, :1], spec.window,
-                                   rounding_mode="floor"))
+        rows = row0 + torch.arange(t, device=positions.device)[None, :]
+        valid = rows <= positions
+    if spec.kind == "swa" and spec.window:
+        valid = valid & (positions - rows < spec.window)
+    elif spec.kind == "chunked" and spec.window:
+        valid = valid & (torch.div(rows, spec.window, rounding_mode="floor")
+                         == torch.div(positions, spec.window,
+                                      rounding_mode="floor"))
+    return valid
+
+
+def decode_attention(x, p, spec: AttnSpec, cache_k, cache_v, pos,
+                     ring: bool = False, cache_kpos=None):
+    """Single-token decode. x: [B,1,D]; cache: [B,S,Nkv,hd]; pos: [B].
+
+    Writes this token's k/v (and, with ``ring=True``, its absolute
+    position into ``cache_kpos`` [B,S]) into the caches IN PLACE, then
+    attends over them; returns out [B,1,D]. With ``ring=True`` the cache
+    length is the attention window and writes wrap; ``cache_kpos`` keeps
+    the SWA/chunked masks exact across wraps.
+    """
+    S = cache_k.shape[1]
+    q, positions = _decode_write(x, p, spec, cache_k, cache_v, pos, ring,
+                                 cache_kpos)
+    NQ, HD = spec.num_heads, spec.head_dim
+    NKV = spec.num_kv_heads
+    G = NQ // NKV
 
     def attend(q_, k_, v_, valid_):
         b, hq = q_.shape[0], q_.shape[2]
@@ -424,20 +463,40 @@ def decode_attention(x, p, spec: AttnSpec, cache_k, cache_v, pos,
 
     # under a mesh on each rank's heads, where the cache's rows are whole
     # on every rank; a cache sharded along its rows (``cache_seq``) runs
-    # as DTensor ops, the softmax reduced over the shards, its one-token
-    # q gathered over the heads first (DTensor cannot split heads sharded
-    # finer than the kv heads into groups)
+    # as flash-decode on each rank's rows (``decode_rows``), its one-token
+    # q gathered over the heads first: the row max and the row sum of exp
+    # reduced once each in f32 (one number a row), the weighted V partial
+    # sum once in the activation dtype, as the JAX package's compiled
+    # step partitions its softmax; no score leaves its rank
     c_axes = ("batch", "cache_seq", "kv_heads_act", "head_dim")
     cp = ctx.placements(cache_k, c_axes)
     if cp is None or not any(pl.is_shard(1) for pl in cp):
         shard = ctx.shard_index(q, _DQ_AXES, 2)
+        valid = _valid_rows(spec, positions, ring, cache_kpos, 0, S)
         out = ctx.local_call(attend, (q, cache_k, cache_v, valid),
                              (_DQ_AXES, c_axes, c_axes,
                               ("batch", "cache_seq")), _DQ_AXES)
     else:
-        shard = 0
-        out = attend(ctx.constrain(q, ("batch", "seq", None, "head_dim")),
-                     cache_k, cache_v, valid)
+        seq_dims = [m for m, pl in enumerate(cp) if pl.is_shard(1)]
+        seq_shard = ctx.shard_index(cache_k, c_axes, 1)
+
+        def attend_rows(q_, k_, v_, positions_, kpos_=None):
+            t = k_.shape[1]
+            valid_ = _valid_rows(spec, positions_, ring, kpos_,
+                                 seq_shard * t, t)
+            return decode_rows(
+                q_.reshape(q_.shape[0], 1, NKV, G, HD), k_, v_, valid_,
+                x.dtype,
+                reduce_max=lambda a: ctx.reduce_local(a, "max", seq_dims),
+                reduce_sum=lambda a: ctx.reduce_local(a, "sum", seq_dims))
+
+        q_axes = ("batch", "seq", None, "head_dim")
+        out = ctx.local_call(
+            attend_rows, (q, cache_k, cache_v, positions)
+            + ((cache_kpos,) if ring else ()),
+            (q_axes, c_axes, c_axes, ("batch", None))
+            + ((("batch", "cache_seq"),) if ring else ()),
+            q_axes, contracted=("cache_seq",))
     return proj_out(out, p["wo"])
 
 

@@ -113,7 +113,14 @@ def _rwkv_inputs(x, x_prev, p):
     k = proj_heads(mx(p["mix_k"]), p["wk"])
     v = proj_heads(mx(p["mix_v"]), p["wv"])
     g = proj_heads(mx(p["mix_g"]), p["wg"])
-    lo = torch.tanh(torch.einsum("bsd,dl->bsl", mx(p["mix_w"]), p["wa"]))
+    # the decay LoRA as the JAX package's compiled step splits it: x @ wa
+    # on each rank's rows with wa gathered whole (every lora column on
+    # every model rank), lo @ wb on the model axis's heads
+    lo = torch.tanh(ctx.local_call(
+        lambda x_, w_: torch.einsum("bsd,dl->bsl", x_, w_),
+        (mx(p["mix_w"]), p["wa"]),
+        (("batch", "seq", "embed_act"), ("embed_full", "lora")),
+        ("batch", "seq", "lora")))
     # w0 + lora in the model's type, then f32 for exp(-exp(.))
     wdec = torch.exp(-torch.exp(
         (p["w0"][None, None] + proj_heads(lo, p["wb"],

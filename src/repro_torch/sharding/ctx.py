@@ -12,7 +12,9 @@ under a mesh of another form, is returned unchanged.
 CUDA wrappers take raw pointers, so a kernel (or, on the CPU, its plain
 version) gets each rank's local shards, and its outputs come back as
 DTensors with the placements the rules give. ``shard_index`` is which
-shard of a dimension this rank holds; ``take_last`` a gather and
+shard of a dimension this rank holds, ``reduce_local`` a reduction of a
+local tensor over mesh dimensions inside ``local_call``'s function,
+``mean_last`` a mean along the last dimension; ``take_last`` a gather and
 ``logsumexp_last`` a log-sum-exp along the last dimension, both of which
 keep that dimension on its shards where DTensor shards it.
 """
@@ -190,6 +192,22 @@ def local_call(fn, args, in_axes, out_axes, contracted=()):
     return wrapped[0] if single else wrapped
 
 
+def reduce_local(t, op: str, mesh_dims):
+    """A rank's local tensor ``t`` reduced with ``op`` ("sum" or "max")
+    over the given dimensions of the context's mesh, in t's dtype: the
+    collective a function run by ``local_call`` makes itself, on a
+    statistic its ranks must agree on before it goes on."""
+    if not mesh_dims:
+        return t
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    dm = _device_ctx()[0].device_mesh
+    pl = [Partial(op) if m in mesh_dims else Replicate()
+          for m in range(dm.ndim)]
+    return DTensor.from_local(t, dm, pl, run_check=False).redistribute(
+        dm, [Replicate()] * dm.ndim).to_local()
+
+
 def _last_sharded(x) -> bool:
     return is_dtensor(x) and any(p.is_shard(x.dim() - 1)
                                  for p in x.placements)
@@ -203,6 +221,39 @@ def _rows(x, y):
     pl = [Replicate() if p.is_shard(x.dim() - 1) else p
           for p in x.placements]
     return y.redistribute(x.device_mesh, pl)
+
+
+class _RowSum(torch.autograd.Function):
+    """``x.sum(-1, keepdim=True)`` of a DTensor sharded along its last
+    dimension: each rank's sum reduced once, forward; backward, the
+    gradient (a partial sum where the row's readers were sharded) reduced
+    once as a row, then broadcast onto x's shards. Left to DTensor, that
+    partial sum would travel with the broadcast and be reduce-scattered
+    at x's full width."""
+
+    @staticmethod
+    def forward(fctx, x):
+        fctx.spec = (x.device_mesh, tuple(x.placements), x.shape)
+        return _rows(x, x.sum(-1, keepdim=True))
+
+    @staticmethod
+    def backward(fctx, g):
+        from torch.distributed.tensor import Replicate
+
+        mesh, pl, shape = fctx.spec
+        rows = [Replicate() if p.is_shard(len(shape) - 1) else p for p in pl]
+        return g.redistribute(mesh, rows).expand(shape).redistribute(mesh,
+                                                                     pl)
+
+
+def mean_last(x):
+    """``torch.mean(x, -1, keepdim=True)``. A DTensor sharded along the
+    last dimension reduces one number a row, once, forward and backward
+    (``_RowSum``); DTensor's own mean there places the partial mean its
+    own way, and its gradient comes back at x's full width."""
+    if not _last_sharded(x):
+        return torch.mean(x, dim=-1, keepdim=True)
+    return _RowSum.apply(x) / x.shape[-1]
 
 
 def logsumexp_last(x):

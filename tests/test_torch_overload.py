@@ -152,15 +152,32 @@ def _fingerprint(res):
     return tuple(fp)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _wl(key):
     return workloads.make_workload(workloads.WorkloadConfig(**dict(key)))
 
 
+@functools.cache
+def _port_run(cfg, wl_key):
+    """One port run on the CPU, memoized across this module's tests (a
+    policy cell's run serves its differential and its leap check; no
+    test changes a returned result)."""
+    return engine_lib.run_simulation(cfg, _wl(wl_key), device="cpu")
+
+
 def _run(eng_kw, wl_kw, sim=SIM, **overrides):
     cfg = EngineConfig(**dict(eng_kw, **overrides), **sim)
-    return engine_lib.run_simulation(cfg, _wl(tuple(sorted(wl_kw.items()))),
-                                     device="cpu")
+    return _port_run(cfg, tuple(sorted(wl_kw.items())))
 
 
 def _ref(eng_kw, wl_kw, sim=SIM):

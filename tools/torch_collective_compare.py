@@ -22,15 +22,22 @@ passes ``all-reduce-promotion`` and ``float-normalization-bf16``; a TPU
 or GPU compile keeps them in bf16). ``coll_own`` is the same module with
 each collective's elements at the dtype they had before those passes:
 the module dumped just before ``all-reduce-promotion`` gives each
-collective's dtypes, by its channel id where the optimized module keeps
-the instruction whole, else by (kind, shape, group size) (a collective
-XLA combined with others), and the wire bytes are the reference's own
+collective's dtypes, and the wire bytes are the reference's own
 formulas (``repro.launch.roofline``) over the optimized module at those
-dtypes. A combined element whose shape other collectives of its kind
-carried both in bf16 and in f32 has no one answer: the tool raises
-(rwkv6-1.6b's train_4k). The port's collectives run in the
-dtype of what they carry, so ``coll_own`` is the like-for-like
-yardstick; the tool prints both.
+dtypes. An instruction the optimized module keeps whole is found by its
+channel id. One that XLA combined from several (a tuple of elements,
+under the channel id of one of them) is split by its operands: its
+elements are matched one by one, in order, to a run of the collectives
+of its kind and replica groups, in channel order, that holds its channel
+id and has the same shapes in turn (``split_combined``; every such run
+must give the same dtypes). Where that fails, an element takes the dtype
+that every collective of its kind, shape and group size had; where they
+had both bf16 and f32 (XLA merged loops and combined out of channel
+order), the elements of that kind, groups and shape take the dtypes in
+the counts the pre-promotion module issued them, and the tool raises if
+the counts disagree. The port's collectives run in the dtype of what
+they carry, so ``coll_own`` is the like-for-like yardstick; the tool
+prints both, and the JSON the reference's ``split`` and ``by_count``.
 
 Prints one line a cell and, last, a JSON object {"port": {...}, "jax":
 {...}} keyed by "arch/cell".
@@ -59,17 +66,63 @@ def _elements(shape_text: str) -> list[tuple[str, tuple]]:
             for dt, dims in re.findall(r"(\w+)\[([\d,]*)\]", shape_text)]
 
 
-def _channel(ins) -> str | None:
+def _channel(ins) -> int | None:
     m = re.search(r"channel_id=(\d+)", ins["rest"])
-    return m.group(1) if m else None
+    return int(m.group(1)) if m else None
+
+
+def _groups(ins) -> tuple | None:
+    """The replica groups of a collective, each a tuple of device ids,
+    from either form XLA prints: ``{{0,2},{1,3}}`` or the iota form
+    ``[2,2]<=[2,2]T(1,0)``."""
+    import numpy as np
+
+    rest = ins["rest"]
+    m = re.search(r"replica_groups=\{((?:\{[\d,]*\},?)*)\}", rest)
+    if m:
+        return tuple(tuple(int(x) for x in g.split(",") if x)
+                     for g in re.findall(r"\{([\d,]*)\}", m.group(1)))
+    m = re.search(r"replica_groups=\[([\d,]+)\]<=\[([\d,]+)\]"
+                  r"(?:T\(([\d,]+)\))?", rest)
+    if not m:
+        return None
+    shape, dims = ([int(x) for x in g.split(",")] for g in m.group(1, 2))
+    ids = np.arange(int(np.prod(dims))).reshape(dims)
+    if m.group(3):
+        ids = ids.transpose([int(x) for x in m.group(3).split(",")])
+    return tuple(map(tuple, ids.reshape(shape).tolist()))
+
+
+def split_combined(ins, els, issued) -> list[str] | None:
+    """The dtypes before promotion of the elements ``els`` of ``ins``, a
+    collective XLA combined from several, from ``issued``: the
+    pre-promotion collectives of its kind and replica groups, as
+    (channel id, elements) in channel order. The combiner took a run of
+    them in that order and gave the result one of their channel ids, so
+    every run of as many elements that holds that channel and has the
+    same shapes in turn is a candidate; the dtypes where all candidates
+    agree, else None."""
+    ch = _channel(ins)
+    seq = [(c, e) for c, els_ in issued for e in els_]
+    dims = [d for _t, d in els]
+    found = set()
+    for i in range(len(seq) - len(els) + 1):
+        run = seq[i:i + len(els)]
+        if ([e[1] for _c, e in run] == dims
+                and any(c == ch for c, _e in run)):
+            found.add(tuple(e[0] for _c, e in run))
+    return list(found.pop()) if len(found) == 1 else None
 
 
 def own_dtype_bytes(final_text: str, pre_text: str, devices: int) -> dict:
     """Collective wire bytes per device of the optimized module
     ``final_text`` with each collective's elements at the dtype that
     ``pre_text`` (the module before the CPU's promotion passes) gives
-    them; {"bytes", "detail", "as_compiled"} (``as_compiled``: the same
-    count at the final module's dtypes, equal to the reference's)."""
+    them; {"bytes", "detail", "as_compiled", "split", "by_count"}
+    (``as_compiled``: the same count at the final module's dtypes, equal
+    to the reference's; ``split``: the combined instructions split by
+    their operands; ``by_count``: the elements left to the shape's
+    count, below)."""
     from repro.launch import roofline as R
 
     def collectives(text):
@@ -81,41 +134,83 @@ def own_dtype_bytes(final_text: str, pre_text: str, devices: int) -> dict:
                     yield mult.get(cname, 1.0), ins
 
     dtypes: dict[tuple, set] = {}
-    by_channel: dict[str, list] = {}
-    for _m, ins in collectives(pre_text):
+    by_channel: dict[int, list] = {}
+    issued: dict[tuple, list] = {}
+    # (kind, replica groups, shape) -> {dtype: elements issued, each
+    # counted as often as its computation runs}
+    weight: dict[tuple, dict] = {}
+    for m, ins in collectives(pre_text):
         g = R._group_size(ins["rest"], devices)
         els = _elements(ins["shape"])
-        if _channel(ins):
+        if _channel(ins) is not None:
             by_channel[_channel(ins)] = els
+            issued.setdefault((ins["op"], _groups(ins)), []).append(
+                (_channel(ins), els))
         for dt, dims in els:
             dtypes.setdefault((ins["op"], dims, g), set()).add(dt)
-    total = as_compiled = 0.0
-    detail: dict[str, float] = {}
+            w = weight.setdefault((ins["op"], _groups(ins), dims), {})
+            w[dt] = w.get(dt, 0.0) + m
+    for v in issued.values():
+        v.sort(key=lambda ce: ce[0])
+    out = {"bytes": 0.0, "detail": {}, "as_compiled": 0.0, "split": 0,
+           "by_count": 0}
+
+    def add(m, ins, dims, dt, own, share=1.0):
+        elem = {"op": ins["op"], "rest": ins["rest"]}
+        b = share * m * R.collective_wire_bytes(
+            {**elem, "shape": f"{own}[{','.join(map(str, dims))}]"}, devices)
+        out["bytes"] += b
+        out["detail"][ins["op"]] = out["detail"].get(ins["op"], 0.0) + b
+        out["as_compiled"] += share * m * R.collective_wire_bytes(
+            {**elem, "shape": f"{dt}[{','.join(map(str, dims))}]"}, devices)
+
+    taken: dict[tuple, dict] = {}  # weight of each key's elements placed
+    left: dict[tuple, list] = {}  # each key's elements with no answer yet
     for m, ins in collectives(final_text):
         g = R._group_size(ins["rest"], devices)
         els = _elements(ins["shape"])
-        # the same instruction before the passes (a combined one is not:
-        # its elements are matched by kind, shape and group size)
+        # the same instruction before the passes, else the ones XLA
+        # combined into it, else its kind, shape and group size
         same = by_channel.get(_channel(ins))
-        if same is None or [d for _t, d in same] != [d for _t, d in els]:
-            same = None
+        was = None
+        if same is not None and [d for _t, d in same] == [d for _t, d in els]:
+            was = [t for t, _d in same]
+        elif _channel(ins) is not None and len(els) > 1:
+            was = split_combined(ins, els, issued.get(
+                (ins["op"], _groups(ins)), []))
+            out["split"] += was is not None
         for i, (dt, dims) in enumerate(els):
-            was = {same[i][0]} if same else dtypes.get(
-                (ins["op"], dims, g), {dt})
-            if "bf16" in was and len(was) > 1:
-                raise ValueError(f"{ins['op']} {dims} over {g}: bf16 or "
-                                 f"not before promotion ({sorted(was)})")
-            own = "bf16" if "bf16" in was else dt
-            elem = {"op": ins["op"], "rest": ins["rest"]}
-            shape = f"{own}[{','.join(map(str, dims))}]"
-            b = m * R.collective_wire_bytes({**elem, "shape": shape},
-                                            devices)
-            total += b
-            detail[ins["op"]] = detail.get(ins["op"], 0.0) + b
-            as_compiled += m * R.collective_wire_bytes(
-                {**elem, "shape": f"{dt}[{','.join(map(str, dims))}]"},
-                devices)
-    return {"bytes": total, "detail": detail, "as_compiled": as_compiled}
+            key = (ins["op"], _groups(ins), dims)
+            if was is not None:
+                own = was[i]
+            else:
+                kinds = dtypes.get((ins["op"], dims, g), {dt})
+                if "bf16" in kinds and len(kinds) > 1:
+                    left.setdefault(key, []).append((m, ins, dims, dt))
+                    continue
+                own = "bf16" if "bf16" in kinds else dt
+            t = taken.setdefault(key, {})
+            t[own] = t.get(own, 0.0) + m
+            add(m, ins, dims, dt, "bf16" if own == "bf16" else dt)
+    # XLA merged loops and combined collectives out of channel order: an
+    # element of a shape issued both in bf16 and in f32 takes the dtypes
+    # of what the pre-promotion module issued of its kind, groups and
+    # shape less what the elements above took, in proportion; exact
+    # bytes wherever those counts agree
+    for key, items in left.items():
+        rest = {dt: w - taken.get(key, {}).get(dt, 0.0)
+                for dt, w in weight.get(key, {}).items()}
+        rest = {dt: w for dt, w in rest.items() if w > 0}
+        n = sum(m for m, *_ in items)
+        if abs(sum(rest.values()) - n) > 1e-6 * n:
+            raise ValueError(f"{key[0]} {key[2]}: {n} elements left, the "
+                             f"pre-promotion module issued {rest}")
+        for m, ins, dims, dt in items:
+            for own, w in rest.items():
+                add(m, ins, dims, dt, "bf16" if own == "bf16" else dt,
+                    share=w / n)
+        out["by_count"] += len(items)
+    return out
 
 
 def _jax_side(cells, nothing, dump):
@@ -148,7 +243,8 @@ def _jax_side(cells, nothing, dump):
             "flops": a["flops_per_device"],
             "coll": a["collective_bytes_per_device"],
             "detail": a["collective_detail"],
-            "coll_own": own["bytes"], "detail_own": own["detail"]}
+            "coll_own": own["bytes"], "detail_own": own["detail"],
+            "split": own["split"], "by_count": own["by_count"]}
     if nothing:
         arch = cells[0][0]
         out[f"{arch}/train_4k/nothing"] = {"flops": D.run_cell(
