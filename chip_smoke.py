@@ -341,6 +341,27 @@ Phases (each raises on failure; the script then exits non-zero):
                max, sum and bf16 sum the collectives perform; the
                logits within FIRST_LOGIT_TOL, both step times. The
                collectives themselves need several cards.
+ 20. main path, slice 17: the examples — examples/torch_*.py called
+               in-process on the card at their own sizes, each kernel's
+               count set to 0 just before an example and read just after:
+               the quickstart (2PL wait-die, deadlock-free and ORTHRUS on
+               4,096 YCSB txns over 1 M records, 6,000 rounds: B1 once
+               an orthrus step, its fingerprint equal on the plain path;
+               B3's top-1 plan of 64 tokens over 4 experts at 16 slots
+               equal to ``plan_dispatch``'s, empty slots included); the
+               contention demo at its REPRO_DEMO_FAST budget (22 cells:
+               B2 once a step of its 13 dgcc and quecc cells, each equal
+               on the plain path, metrics included); serve_lm (SMOKE
+               mixtral-8x22b, 10 requests through 4 slots: B4 once a
+               layer a prefill at head_dim 16, B3 once a layer a prefill
+               and a decode step; then in float32 from the same weights
+               the kernel and the plain path's tokens equal, a differing
+               token allowed only where the two paths' logits there are
+               within SLICE9_F32_TOL); train_lm (SMOKE gemma3-1b, 300
+               steps of 8 x 64: B4 twice a layer a step, the state
+               resumed halfway bit-equal leaf for leaf to the state saved
+               at that step, the loss falling). Each example's wall time,
+               launches and the card's name and power limit.
 
 Phase 2 also holds flash_attention to its plain version (f32 3e-5;
 bf16 2e-2 or one unit in the output's last place, whichever is larger)
@@ -760,6 +781,12 @@ SEQ_DECODE_REPEATS = 5  # timed steps a path, after one untimed
 # atomics of index_add_ and embedding-style backwards; held to this
 # share of the plain gradient's largest |value|
 TRAIN_VJP_RTOL = 1e-3
+# Phase 20 (slice 17): the examples under examples/torch_*.py, called
+# in-process at their own sizes; the demo at its REPRO_DEMO_FAST budget
+EXAMPLES = ROOT / "examples"
+EXAMPLE_TRAIN_STEPS = 300  # examples/torch_train_lm.py's default
+# B3's slot weights against plan_dispatch's (the same f32 products)
+EXAMPLE_PLAN_WEIGHT_TOL = 1e-6
 
 
 def fingerprint(res, include_metrics: bool = False) -> dict:
@@ -1657,7 +1684,10 @@ def check_flash_attention(device, model, mixtral_attn) -> dict:
                 e, r = check(f"random S={s}", *args, kind, w)
                 print(f"flash_attention: random S={s} {kind} window {w} "
                       f"{dtype}: max_abs_err {e}, {r} of the tolerance")
-    for B, s, h, kv, d in ((2, 128, 4, 2, 32), (2, 256, 2, 2, 64)):
+    # test_kernels.py's shapes, and SMOKE mixtral's heads (d = 16, which
+    # examples/torch_serve_lm.py serves) at a ragged length
+    for B, s, h, kv, d in ((2, 128, 4, 2, 32), (2, 256, 2, 2, 64),
+                           (2, 100, 4, 2, 16)):
         for dtype in (torch.bfloat16, torch.float32):
             args = random_attention(B, s, h, kv, d, dtype, s + h, device,
                                     scale=0.2)
@@ -6264,6 +6294,244 @@ def main_path_slice16(device) -> int:
     return launches
 
 
+def load_example(name: str):
+    """examples/<name>.py as a module (its ``main`` is not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_run(label, fn):
+    """``fn()`` with every kernel's count set to 0 just before it; prints
+    its wall time and launches per kernel. (fn's result, the counts)."""
+    import torch
+
+    reset_launches()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {name: ops.launches for name, ops in kernel_ops().items()}
+    print(f"example {label}: {time.time() - t0:.3f} s, kernel launches "
+          f"{counts}; {gpu_name_and_power()}")
+    return out, counts
+
+
+def example_quickstart(device) -> tuple:
+    """examples/torch_quickstart.py at its own sizes: section 1's orthrus
+    cell (B1 once a step) equal to its plain path's, section 2's plan (one
+    B3 launch) equal to ``plan_dispatch``'s. (launches, B3's largest
+    slot-weight difference)."""
+    import torch
+
+    from repro_torch.core.engine import EngineConfig, run_simulation
+    from repro_torch.core.workloads import WorkloadConfig, make_workload
+    from repro_torch.models.moe import plan_dispatch
+
+    q = load_example("torch_quickstart")
+    probs = q.router_probs(device)
+
+    def run():
+        return q.contention(device), q.dispatch(probs)
+
+    (cells, got), counts = example_run("torch_quickstart", run)
+    label = "ORTHRUS (P1+P2)"
+    steps = cells[label].raw["steps_executed"]
+    plain = run_simulation(
+        EngineConfig(**q.ENGINES[label], **q.SIM, kernel_impl="jnp"),
+        make_workload(WorkloadConfig(**q.WORKLOAD)), device=device)
+    same = fingerprint(cells[label], True) == fingerprint(plain, True)
+    print(f"example torch_quickstart: orthrus {steps} steps, lock_grant "
+          f"launches {counts['lock_grant']}, kernel and plain fingerprints "
+          f"{'identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("quickstart's orthrus cell differs on the "
+                             "plain path")
+    want = plan_dispatch(probs, 1, q.CAPACITY)
+    equal = all(torch.equal(got[k], want[k]) for k in ("slot_token", "load"))
+    w_err = float((got["slot_weight"] - want["slot_weight"]).abs().max())
+    empty = int((got["slot_token"] < 0).sum())
+    print(f"example torch_quickstart: B3's plan (N {probs.shape[0]}, E "
+          f"{probs.shape[1]}, top 1, capacity {q.CAPACITY}; {empty} empty "
+          f"slots) against plan_dispatch: slot_token and load "
+          f"{'equal' if equal else 'DIFFER'}, slot_weight max |diff| "
+          f"{w_err} (tolerance {EXAMPLE_PLAN_WEIGHT_TOL}); moe_dispatch "
+          f"launches {counts['moe_dispatch']}")
+    if not (equal and w_err <= EXAMPLE_PLAN_WEIGHT_TOL):
+        raise AssertionError("quickstart's plan differs from plan_dispatch's")
+    if counts["lock_grant"] != steps or counts["moe_dispatch"] != 1:
+        raise AssertionError("quickstart: lock_grant did not launch once a "
+                             "step, or moe_dispatch not once")
+    return counts, w_err
+
+
+def example_demo(device) -> dict:
+    """examples/torch_oltp_contention_demo.py at its REPRO_DEMO_FAST
+    budget: every dgcc and quecc cell (B2 once a step) equal to the same
+    cell on the plain path."""
+    import dataclasses
+
+    from repro_torch.core.engine import run_simulation
+    from repro_torch.core.workloads import make_workload
+
+    d = load_example("torch_oltp_contention_demo")
+    stanzas, counts = example_run("torch_oltp_contention_demo (fast)",
+                                  lambda: d.demo(device, fast=True))
+    workloads, steps, held = {}, 0, 0
+    for name, cells in stanzas.items():
+        for cfg, wcfg, res in cells:
+            if not cfg.is_batch_planned:
+                continue
+            steps += res.raw["steps_executed"]
+            if wcfg not in workloads:
+                workloads[wcfg] = make_workload(wcfg)
+            plain = run_simulation(dataclasses.replace(cfg, kernel_impl="jnp"),
+                                   workloads[wcfg], device=device)
+            if fingerprint(res, True) != fingerprint(plain, True):
+                raise AssertionError(f"demo {name}: {cfg.protocol} cell "
+                                     f"differs on the plain path")
+            held += 1
+    print(f"example torch_oltp_contention_demo: {held} dgcc and quecc cells "
+          f"identical on the plain path (metrics incl.); dep_wavefront "
+          f"launches {counts['dep_wavefront']} in {steps} steps")
+    if counts["dep_wavefront"] != steps or steps == 0:
+        raise AssertionError("dep_wavefront did not launch once a step")
+    return counts
+
+
+def example_serve(device) -> dict:
+    """examples/torch_serve_lm.py: its ``main`` (SMOKE mixtral-8x22b, bf16,
+    10 requests through 4 slots) on the kernel path, then the same
+    weights in float32 on the kernel and the plain path: the same
+    tokens; where one differs, the two paths' logits at that token
+    within SLICE9_F32_TOL (a near tie)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    s = load_example("torch_serve_lm")
+    _, counts = example_run("torch_serve_lm", lambda: s.main([]))
+    cfg = get_smoke_config(s.ARCH)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_params(f32, 0, device)
+    outs = {}
+    for impl in ("auto", "jnp"):
+        done, _ = s.serve(f32, params, device, s.make_requests(f32),
+                          kernel_impl=impl)
+        outs[impl] = {r.rid: (r.prompt, r.output) for r in done}
+    gaps = []
+    for rid, (prompt, toks) in outs["auto"].items():
+        plain = outs["jnp"][rid][1]
+        if toks == plain:
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(toks, plain)) if a != b)
+        seq = torch.as_tensor([list(prompt) + toks[:t]], device=device)
+        with torch.no_grad():
+            last = [M.prefill(params, f32, seq, kernel_impl=impl)[0][0, -1]
+                    for impl in ("auto", "jnp")]
+        gap = float((last[0] - last[1]).abs().max())
+        gaps.append(gap)
+        print(f"example torch_serve_lm f32: request {rid} differs at token "
+              f"{t} ({toks[t]} against {plain[t]}): logits |diff| {gap}")
+        if not gap <= SLICE9_F32_TOL:
+            raise AssertionError(f"serve_lm f32: request {rid}'s logits "
+                                 f"differ by {gap} > {SLICE9_F32_TOL}")
+    print(f"example torch_serve_lm f32: {len(outs['auto']) - len(gaps)} of "
+          f"{len(outs['auto'])} requests token for token on the kernel and "
+          f"the plain path")
+    layers = cfg.num_layers
+    print(f"example torch_serve_lm: {layers} layers, flash_attention "
+          f"launches {counts['flash_attention']} (= {layers} x "
+          f"{s.N_REQUESTS} prefills), moe_dispatch {counts['moe_dispatch']}")
+    if counts["flash_attention"] != layers * s.N_REQUESTS or \
+            counts["moe_dispatch"] <= layers * s.N_REQUESTS or \
+            counts["moe_dispatch"] % layers:
+        raise AssertionError("serve_lm: B3 or B4 launched other than once "
+                             "a layer a prefill (and, B3, a decode step)")
+    return counts
+
+
+def example_train(device, steps=EXAMPLE_TRAIN_STEPS) -> dict:
+    """examples/torch_train_lm.py (SMOKE gemma3-1b, batch 8 x 64) for
+    ``steps`` steps: B4 twice a self-attention layer a step; the state
+    restored halfway equal, leaf for leaf and bit for bit, to the state
+    saved at that step; the loss falls."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+
+    t = load_example("torch_train_lm")
+
+    class Recording(Checkpointer):
+        saved, restored = {}, None
+
+        def maybe_save(self, step, tree, force=False):
+            done = super().maybe_save(step, tree, force)
+            if done:
+                Recording.saved[step] = pytree.tree_map(torch.clone, tree)
+            return done
+
+        def restore_latest(self, target_tree, device=None):
+            step, tree = super().restore_latest(target_tree, device)
+            Recording.restored = (step, pytree.tree_map(torch.clone, tree))
+            return step, tree
+
+    out, counts = example_run(
+        "torch_train_lm", lambda: t.train(
+            t.parse_args(["--steps", str(steps)]), checkpointer=Recording))
+    step, tree = Recording.restored
+    got, want = pytree.tree_leaves(tree), pytree.tree_leaves(
+        Recording.saved[step])
+    same = len(got) == len(want) and all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for a, b in zip(got, want))
+    layers = get_smoke_config(t.parse_args([]).arch).num_layers
+    print(f"example torch_train_lm: {steps} steps, loss {out['first']:.4f} "
+          f"-> {out['last']:.4f}; resumed from step {step}: {len(got)} "
+          f"leaves {'bit-equal' if same else 'DIFFER'} to the saved state; "
+          f"flash_attention launches {counts['flash_attention']} (2 x "
+          f"{layers} layers x {steps} steps)")
+    if not same or out["resumed_from"] != step:
+        raise AssertionError("train_lm: the resumed state is not the saved "
+                             "state")
+    if not out["last"] < out["first"]:
+        raise AssertionError("train_lm: the loss did not fall")
+    if counts["flash_attention"] != 2 * layers * steps:
+        raise AssertionError("train_lm: flash_attention did not launch "
+                             "twice a layer a step")
+    return counts
+
+
+def main_path_slice17(device) -> dict:
+    """Phase 20: the four examples in-process on the card, each held as
+    the functions above say. Returns each kernel's launches over the
+    four and B3's largest slot-weight difference."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    quick, b3_err = example_quickstart(device)
+    runs = [quick, example_demo(device), example_serve(device),
+            example_train(device)]
+    total = {name: sum(c[name] for c in runs) for name in runs[0]}
+    for name in ("lock_grant", "dep_wavefront", "flash_attention",
+                 "moe_dispatch"):
+        if total[name] == 0:
+            raise AssertionError(f"the examples never launched {name}")
+    print(f"slice 17 examples: kernel launches {total}")
+    return dict(total, b3_err=b3_err)
+
+
 def gpu_name_and_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6408,6 +6676,11 @@ def main() -> int:
     rows[2]["launches"] += phase("main path, slice 16: decode over a "
                                  "sequence-sharded cache", main_path_slice16,
                                  device)
+    slice17 = phase("main path, slice 17: the examples", main_path_slice17,
+                    device)
+    for row in rows:
+        row["launches"] += slice17[row["name"]]
+    rows[4]["max_abs_err"] = max(rows[4]["max_abs_err"], slice17["b3_err"])
     print(f"all phases: {time.time() - t_all:.3f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -19,7 +19,7 @@
 // Layout. q and o are [B, S, Hq, d], k and v [B, T, Hkv, d], contiguous:
 // the model's own layout, read in place. Query head h reads KV head
 // h / (Hq / Hkv), so GQA needs neither a repeat nor a transpose.
-// Types: f32 or bf16; d = 32, 64, 128 or 256 (template parameters).
+// Types: f32 or bf16; d = 16, 32, 64, 128 or 256 (template parameters).
 //
 // Design. One block of 256 threads per (b * Hq + h, tile of 64 queries).
 // The TPU kernel's sequential KV grid axis, with its (acc, m, l) carry in
@@ -307,6 +307,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int T_len, int HQ, int HKV, int D,
                      int kind, int window, cudaStream_t stream) {
   switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, B, S, T_len, HQ, HKV, kind, window,
+                           stream);
     case 32:
       return launch<T, 32>(q, k, v, o, B, S, T_len, HQ, HKV, kind, window,
                            stream);

@@ -14,7 +14,8 @@
 //            max) in f32; the sum takes the unrounded p (kernel.py:56), P.V
 //            takes p rounded to bf16 (kernel.py:58); the output is bf16.
 // Query head h reads KV head h / (Hq / Hkv). q and o are [B, S, Hq, d], k
-// and v [B, T, Hkv, d], contiguous, read in place; d = 32, 64, 128, 256.
+// and v [B, T, Hkv, d], contiguous, read in place; d = 16, 32, 64, 128,
+// 256.
 // The plain PyTorch version is `flash_attention_ref` in ../ref.py.
 //
 // Bound. The two products take 4 * d flops per visible (query, key) pair
@@ -45,8 +46,9 @@
 //    are zero-filled by the hardware), each stage with its own full
 //    barriers for K and for V and one empty barrier, so S = Q.K^T of a
 //    stage starts before its V has landed while the next stage loads.
-//    The tiles are 128-byte swizzled (64-byte at d = 32): a box is at most
-//    64 bf16 wide, so a d = 128 or 256 tile is 2 or 4 boxes.
+//    The tiles are 128-byte swizzled (64-byte at d = 32, 32-byte at d =
+//    16): a box is at most 64 bf16 wide, so a d = 128 or 256 tile is 2 or
+//    4 boxes.
 //  * Each consumer computes S = Q.K^T with wgmma m64nBKk16 (Q and K
 //    K-major from shared memory), applies the mask, the online softmax in
 //    registers (row max over the quad that shares a row), and then
@@ -119,8 +121,9 @@ struct Tile {
   static constexpr int kBoxC = D < 64 ? D : 64;    // columns per TMA box
   static constexpr int kRowBytes = kBoxC * 2;      // the swizzle span
   static constexpr int kBoxes = D / kBoxC;
-  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte
-  static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;
+  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte
+  static constexpr int kLayout =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   static constexpr int kQBox = kRowsWG * kRowBytes;  // bytes of a Q box
   static constexpr int kKVBox = kBK * kRowBytes;     // bytes of a K/V box
   static constexpr int kQTile = kQBox * kBoxes;
@@ -263,6 +266,22 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 16] += A[64 x 16] . B[16 x 16], A in registers, B MN-major
+// in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 // D[64 x 32] += A[64 x 16] . B[16 x 32], A in registers, B MN-major
 // in shared memory (the transpose bit)
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -379,8 +398,11 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "head dim");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 256,
+                "head dim");
+  if constexpr (N == 16) {
+    wgmma_rs_n16(d, a, db, scale_d);
+  } else if constexpr (N == 32) {
     wgmma_rs_n32(d, a, db, scale_d);
   } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, db, scale_d);
@@ -666,9 +688,10 @@ bool make_map(CUtensorMap* map, const void* base, int B, int len, int H,
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_c), 1,
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = box_c * 2 == 128
-                                         ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle swizzle =
+      box_c * 2 == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_c * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
@@ -778,6 +801,9 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      return launch_g<16>(q, k, v, o, B, S, T_len, HQ, HKV, kind, window,
+                           heads_per_block, st);
     case 32:
       return launch_g<32>(q, k, v, o, B, S, T_len, HQ, HKV, kind, window,
                            heads_per_block, st);

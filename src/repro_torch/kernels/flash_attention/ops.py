@@ -34,7 +34,7 @@ SIMT_SOURCES = [CSRC / "flash_attention.cu"]  # f32 (and bf16), CUDA cores
 
 KINDS = {"full": 0, "swa": 1, "chunked": 2}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 Q_TILE = 64  # query rows per block (per consumer warpgroup on tensor cores)
 # the tensor-core entry's own return codes beside cudaError_t's
 TC_ERRORS = {1001: "cuTensorMapEncodeTiled not found in libcuda.so.1",

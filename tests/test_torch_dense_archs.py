@@ -36,6 +36,17 @@ from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.models.convert import cache_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.serve import Request, ServeConfig, ServingEngine  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("stablelm-1.6b", "starcoder2-3b", "qwen3-32b")
 ATOL = 1e-5
 

@@ -1,6 +1,8 @@
 """Whole-run differential: the port's ``run_simulation`` reports exactly
 what ``repro.core.engine.run_simulation`` reports, metrics included."""
 
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -74,15 +76,44 @@ BATCH_CELLS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _key(kw):
+    return tuple(sorted(kw.items()))
+
+
+@functools.cache
+def _workload_pair(wl_key):
+    """The (port, reference) workloads of a config, made once for this
+    module."""
+    wl_kw = dict(wl_key)
+    return (workloads.make_workload(workloads.WorkloadConfig(**wl_kw)),
+            ref_workloads.make_workload(
+                ref_workloads.WorkloadConfig(**wl_kw)))
+
+
+@functools.cache
+def _ref_run(eng_key, wl_key):
+    """One reference run, memoized across this module's tests (a batch
+    cell's serves both of its kernel_impl cases; no test changes a
+    returned result)."""
+    return ref_engine.run_simulation(ref_engine.EngineConfig(**dict(eng_key)),
+                                     _workload_pair(wl_key)[1])
+
+
 def _both(eng_kw, wl_kw, sim, impl="auto"):
-    ref = ref_engine.run_simulation(
-        ref_engine.EngineConfig(**eng_kw, **sim),
-        ref_workloads.make_workload(ref_workloads.WorkloadConfig(**wl_kw)),
-    )
+    ref = _ref_run(_key(dict(eng_kw, **sim)), _key(wl_kw))
     got = engine.run_simulation(
         engine.EngineConfig(**eng_kw, **sim, kernel_impl=impl),
-        workloads.make_workload(workloads.WorkloadConfig(**wl_kw)),
-        device="cpu",
+        _workload_pair(_key(wl_kw))[0], device="cpu",
     )
     return got, ref
 

@@ -53,18 +53,33 @@ SIM = dict(max_rounds=800, warmup_rounds=250, chunk_rounds=200,
            target_commits=10**9)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _no_rebase(state):
     return state
 
 
 def _workloads(wl_kw):
-    """The (port, reference) workloads of one config. YCSB_MIXED is YCSB
-    with a quarter of its accesses turned into reads (seeded numpy):
-    readers fill the reader bitmask while writers still deadlock (TPC-C's
-    programs never do under wait-for)."""
-    mixed = wl_kw == YCSB_MIXED
-    if mixed:
-        wl_kw = YCSB
+    """The (port, reference) workloads of one config, made once for this
+    module. YCSB_MIXED is YCSB with a quarter of its accesses turned into
+    reads (seeded numpy): readers fill the reader bitmask while writers
+    still deadlock (TPC-C's programs never do under wait-for)."""
+    return _workload_pair(
+        wl_kw if wl_kw == YCSB_MIXED else tuple(sorted(wl_kw.items())))
+
+
+@functools.cache
+def _workload_pair(key):
+    mixed = key == YCSB_MIXED
+    wl_kw = YCSB if mixed else dict(key)
     pair = (workloads.make_workload(workloads.WorkloadConfig(**wl_kw)),
             ref_workloads.make_workload(ref_workloads.WorkloadConfig(**wl_kw)))
     if mixed:
@@ -74,6 +89,18 @@ def _workloads(wl_kw):
         pair = tuple(dataclasses.replace(w, modes=modes.astype(np.int32))
                      for w in pair)
     return pair
+
+
+@functools.cache
+def _ref_step(ref_cfg, meta):
+    """The reference's jitted step for a config and plan shape, compiled
+    once for this module."""
+    make = (ref_engine.make_batch_step if ref_cfg.is_batch_planned
+            else ref_engine.make_step)
+    return jax.jit(make(ref_cfg, meta))
+
+
+_REF_REBASE = jax.jit(ref_engine.rebase_enq)
 
 
 @pytest.mark.parametrize("eng_kw,wl_kw,leap,impl", [
@@ -130,7 +157,7 @@ def test_step_matches_reference(eng_kw, wl_kw, leap, impl):
     plan = engine.make_plan(cfg, wl)
     batch = cfg.is_batch_planned
     if batch:
-        ref_step = jax.jit(ref_engine.make_batch_step(ref_cfg, meta))
+        ref_step = _ref_step(ref_cfg, meta)
         step = engine.make_batch_step(cfg, engine.plan_meta(cfg, plan), "cpu")
         s_ref = ref_engine._batch_state0(ref_cfg, ref_plan, cfg.n_slots)
         s = engine._batch_state0(cfg, plan, cfg.n_slots, "cpu")
@@ -140,8 +167,8 @@ def test_step_matches_reference(eng_kw, wl_kw, leap, impl):
             np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
         rebase = ref_rebase = _no_rebase  # no lock table, no stamps
     else:
-        ref_step = jax.jit(ref_engine.make_step(ref_cfg, meta))
-        ref_rebase = jax.jit(ref_engine.rebase_enq)
+        ref_step = _ref_step(ref_cfg, meta)
+        ref_rebase = _REF_REBASE
         rebase = engine.rebase_enq
         step = engine.make_step(cfg, engine.plan_meta(cfg, plan), "cpu")
         s_ref = ref_engine._state0(ref_cfg, ref_plan.num_records, cfg.n_slots,
@@ -237,8 +264,8 @@ def waitfor_mid_run():
     meta = ref_engine.plan_meta(ref_cfg, ref_plan)
     p_np = ref_engine.plan_device(ref_cfg, ref_plan)
     p_ref = {k: jnp.asarray(v) for k, v in p_np.items()}
-    ref_step = jax.jit(ref_engine.make_step(ref_cfg, meta))
-    ref_rebase = jax.jit(ref_engine.rebase_enq)
+    ref_step = _ref_step(ref_cfg, meta)
+    ref_rebase = _REF_REBASE
     T = ref_cfg.n_slots
     s = ref_engine._state0(ref_cfg, ref_plan.num_records, T, meta.max_keys)
     off_diag = ~np.eye(T, dtype=bool)
@@ -267,7 +294,7 @@ def test_deadlock_stage_matches_reference_mid_run(waitfor_mid_run,
     _, ref_wl = _workloads(YCSB_MIXED)
     meta = ref_engine.plan_meta(ref_cfg, ref_engine.make_plan(ref_cfg,
                                                               ref_wl))
-    ref_step = jax.jit(ref_engine.make_step(ref_cfg, meta))
+    ref_step = _ref_step(ref_cfg, meta)
     step = engine.make_step(cfg, meta, "cpu")
     p_ref = {k: jnp.asarray(v) for k, v in p_np.items()}
     p = plan_from_numpy(p_np, "cpu")

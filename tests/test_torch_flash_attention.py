@@ -242,7 +242,7 @@ def _transposed(S, T, H, KV, D, dtype):
 
 
 @pytest.mark.parametrize("make,exc", [
-    (lambda: _fake(64, 64, 4, 1, 16, torch.bfloat16), ValueError),
+    (lambda: _fake(64, 64, 4, 1, 8, torch.bfloat16), ValueError),
     (lambda: _fake(64, 64, 4, 1, 48, torch.bfloat16), ValueError),
     (lambda: _fake(64, 64, 4, 1, 512, torch.bfloat16), ValueError),
     (lambda: _fake(64, 64, 4, 1, 96, torch.float32), ValueError),
@@ -316,7 +316,7 @@ def test_mixtral_layout_on_card(S, T):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,window", KINDS)
-@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("S,T,H,KV", [(100, 163, 4, 1), (77, 77, 6, 2),
                                       (130, 200, 3, 3)])
 def test_ragged_rows_each_head_dim_on_card(kind, window, D, S, T, H, KV):

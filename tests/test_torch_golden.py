@@ -14,6 +14,16 @@ from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.workloads import WorkloadConfig, make_workload  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", sorted(CELLS))
 def test_golden_trace_on_port(name):
     wl_kw, eng_kw = CELLS[name]

@@ -25,6 +25,17 @@ from repro.core import engine as ref_engine  # noqa: E402
 from repro.core import workloads as ref_workloads  # noqa: E402
 from repro_torch.core import engine, workloads  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the goldens whose configs the legacy layout admits (no scheduled
 # family, fragments, planner lanes, open arrival or overload layer)
 LEGACY_GOLDENS = (

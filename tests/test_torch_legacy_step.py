@@ -11,6 +11,8 @@ state, on the CPU.
   * ``convert`` carries a legacy state both ways.
 """
 
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -30,6 +32,17 @@ from repro_torch.core.convert import (  # noqa: E402
     state_to_numpy,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # tests/test_engine_leap.py's cells
 FAST = dict(max_rounds=2000, warmup_rounds=500, chunk_rounds=500,
             target_commits=10**9)
@@ -47,17 +60,25 @@ YCSB_HOT = dict(kind="ycsb", num_txns=512, num_records=20_000, num_hot=8,
                 seed=0)
 
 
+@functools.cache
+def _workload_pair(wl_key):
+    """The (port, reference) workloads of a config, made once for this
+    module."""
+    wl_kw = dict(wl_key)
+    return (workloads.make_workload(workloads.WorkloadConfig(**wl_kw)),
+            ref_workloads.make_workload(
+                ref_workloads.WorkloadConfig(**wl_kw)))
+
+
 def _plans(protocol, wl_kw, sim=FAST, **kw):
     """(port cfg, reference cfg, meta, numpy plan arrays, (reference
     plan, port plan))."""
     eng_kw = dict(protocol=protocol, state_layout="legacy", **kw, **sim)
     cfg = engine.EngineConfig(**eng_kw)
     ref_cfg = ref_engine.EngineConfig(**eng_kw)
-    ref_plan = ref_engine.make_plan(
-        ref_cfg, ref_workloads.make_workload(
-            ref_workloads.WorkloadConfig(**wl_kw)))
-    plan = engine.make_plan(
-        cfg, workloads.make_workload(workloads.WorkloadConfig(**wl_kw)))
+    wl, ref_wl = _workload_pair(tuple(sorted(wl_kw.items())))
+    ref_plan = ref_engine.make_plan(ref_cfg, ref_wl)
+    plan = engine.make_plan(cfg, wl)
     meta = ref_engine.plan_meta(ref_cfg, ref_plan)
     assert engine.plan_meta(cfg, plan) == engine.PlanMeta(
         **vars(meta))

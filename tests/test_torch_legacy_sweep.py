@@ -23,6 +23,17 @@ from hypothesis_compat import given, settings, st  # noqa: E402
 
 from repro_torch.core import engine, sweep, workloads  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PROTO_KW = {
     "twopl_waitdie": dict(n_exec=8),
     "twopl_waitfor": dict(n_exec=8),

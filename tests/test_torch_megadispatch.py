@@ -42,6 +42,17 @@ from repro_torch.core.convert import (  # noqa: E402
 )
 from repro_torch.core.engine import EngineConfig, PlanMeta  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FAST = dict(max_rounds=300, warmup_rounds=100, chunk_rounds=100,
             target_commits=10**9)
 

@@ -29,6 +29,17 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as TF  # noqa: E402
 from repro_torch.models.convert import cache_from_numpy, params_from_numpy  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "gemma3-1b"
 F32 = dict(dtype="float32")
 

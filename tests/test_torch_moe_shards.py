@@ -31,6 +31,17 @@ from repro_torch.kernels.moe_dispatch.ref import (  # noqa: E402
 )
 from repro_torch.models import moe as MOE  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 IMPLS = ["jnp", "pallas"]  # "pallas" on CPU tensors: the wrapper's path
 
 

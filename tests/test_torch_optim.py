@@ -39,6 +39,17 @@ from repro_torch.optim import (  # noqa: E402
 from repro_torch.optim.optimizers import _factored  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STEPS = 5
 SHAPES = {"emb": (200, 160), "w": (3, 130, 128), "bias": (96,),
           "gate": (), "narrow": (256, 64)}

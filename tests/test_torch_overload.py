@@ -180,10 +180,16 @@ def _run(eng_kw, wl_kw, sim=SIM, **overrides):
     return _port_run(cfg, tuple(sorted(wl_kw.items())))
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_wl(key):
+    return ref_workloads.make_workload(
+        ref_workloads.WorkloadConfig(**dict(key)))
+
+
 def _ref(eng_kw, wl_kw, sim=SIM):
     return ref_engine.run_simulation(
         ref_engine.EngineConfig(**eng_kw, **sim),
-        ref_workloads.make_workload(ref_workloads.WorkloadConfig(**wl_kw)),
+        _ref_wl(tuple(sorted(wl_kw.items()))),
     )
 
 
@@ -394,8 +400,8 @@ def test_offered_by_round_is_exact_int64(name):
     wl_kw = MP_WL if name in BATCH_CELLS else OVERLOAD_WL
     cfg, plan = _plan(eng, wl_kw, SIM)
     ref_cfg = ref_engine.EngineConfig(**eng, **SIM)
-    ref_plan = ref_engine.make_plan(ref_cfg, ref_workloads.make_workload(
-        ref_workloads.WorkloadConfig(**wl_kw)))
+    ref_plan = ref_engine.make_plan(ref_cfg,
+                                    _ref_wl(tuple(sorted(wl_kw.items()))))
     for r in (-1, 0, 1, 149, 150, 599, 1200, 10**7, 10**12):
         got = engine_lib.offered_by_round(cfg, plan, r)
         assert type(got) is int

@@ -49,6 +49,17 @@ from repro_torch.models.convert import cache_from_numpy, params_from_numpy  # no
 from repro_torch.serve import Request, ServeConfig, ServingEngine  # noqa: E402
 from repro_torch.serve.engine import _splice_cache  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "rwkv6-1.6b"
 IMPLS = ["jnp", "pallas"]  # "pallas" on CPU tensors: the wrapper's path
 

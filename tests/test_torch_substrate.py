@@ -46,6 +46,16 @@ from repro_torch.train.grad_compress import (  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------- data
 @pytest.mark.parametrize("hosts", [1, 2])
 def test_batches_equal_the_reference(hosts):

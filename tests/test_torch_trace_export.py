@@ -28,6 +28,17 @@ from repro_torch.core import engine, metrics, workloads  # noqa: E402
 from tools import torch_trace_export as tte  # noqa: E402
 from tools import trace_export as ref_tte  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROUNDS = 400
 SIM = dict(max_rounds=ROUNDS, warmup_rounds=0, chunk_rounds=ROUNDS,
            target_commits=10**9)

@@ -45,6 +45,17 @@ from repro_torch.train.train_step import (  # noqa: E402
 )
 from torch.utils import _pytree as pytree  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: the tensors are small (and the test workers
+    share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4  # of the reference leaf's largest |value|
 B, S = 2, 32
